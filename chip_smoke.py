@@ -3,34 +3,64 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path at the full width of the NYTimes
-configuration (V = 101,636, K = 1024, alpha = 50/K, beta = 0.01; engine
-buckets B <= 32, L in {32, 64, 128, 256}; 8 burn-in + 4 sample sweeps)
-against a planted model made from a seed, and holds the fold-in CUDA kernel
-against its plain PyTorch version on the card.  Phases, one JSON line each:
+Drives the port's two ported paths at the full width of the NYTimes
+configuration (V = 101,636, K = 1024, alpha = 50/K, beta = 0.01) and holds
+every CUDA kernel of those paths against its plain PyTorch version on the
+card.  Phases, one JSON line each:
 
 1. the card (``nvidia-smi`` name and power limit, torch's device name);
 2. the build of every kernel from ``src/repro_torch/kernels/*/csrc`` with
-   nvcc, timed;
-3. kernel against plain version at B = 32, L = 256, P = 256 on rows
-   gathered from the planted model, same z0 and uniforms (bounds below);
-4. kernel and plain-version times at each L bucket, B = 32 (CUDA events,
+   nvcc, one process per source, all started together, timed;
+
+Serving (a planted model made from a seed; engine buckets B <= 32,
+L in {32, 64, 128, 256}; 8 burn-in + 4 sample sweeps):
+
+3. fold-in kernel (K3) against plain version at B = 32, L = 256, P = 256 on
+   rows gathered from the planted model, same z0 and uniforms;
+4. K3 and plain-version times at each L bucket, B = 32 (CUDA events,
    3 warm-up launches, median of 20);
-5. the main path: ``LDAServeEngine`` on the planted snapshot serves unseen
-   documents drawn from the model, then hot-swaps a second planted model
-   and serves more; the kernel's launch counter is read around it.
+5. the serving main path: ``LDAServeEngine`` serves unseen documents drawn
+   from the model, then hot-swaps a second planted model and serves more;
+   K3's launch counter is read around it;
+6. the same storm warm and traced: the host span breakdown.
 
-Bounds (fault F2: the kernel's prefix sums are sequential float32 adds and
-torch.cumsum sums in another order, so a draw on a float boundary may flip
-and a flip then changes the rest of that document's chain):
+Training (``configs/lda_nytimes.CONFIG`` on ``nytimes_like(1.0)``:
+D = 299,752 docs, V = 101,636, ~99.5M tokens, Zipf 1.1):
 
-* one sweep: draws differ on <= 1e-3 of real tokens;
-* full run: the sparse-draw count and the argmax topic agree on >= 99% of
-  documents, and the mean per-document L1 distance of normalised theta is
-  <= 0.02;
-* main path: every theta sums to 1 (atol 1e-4), the planted major topic is
+7. host preparation: corpus, tiling, move to the card;
+8. the sweep kernel (K1) against its plain version: one sweep from the
+   initial state and the same uniforms on the heaviest word's first 1024
+   tiles and the last 1024 (tail) tiles, at full K and V;
+9. the count kernels (K2 phi delta, K4 phi rebuild) against their plain
+   versions at full V x K, after one full-width K1 sweep;
+10. K1, K2 and K4 times at full width (CUDA events, median of 20; the
+    plain K1 median of 3), each with its bound and, for K2 and K4, one
+    ``index_add_`` as the library yardstick;
+11. the training main path: ``fit(corpus, CONFIG, 10)`` on cuda:0 with
+    eval every iteration, then K4 rebuilds phi from the final z; the K1,
+    K2 and K4 counters are read around both;
+12. K1 against its plain version again, on the trained state (the same
+    tiles as in 8);
+13. where an iteration's time goes: each step of ``lda_iteration`` timed
+    alone on the final state (CUDA events, median of 5).
+
+Bounds (fault F2: the kernels' prefix sums are float32 adds in another
+order than torch.cumsum's, so a draw on a float boundary may flip):
+
+* K3, one sweep: draws differ on <= 1e-3 of real tokens; full run: the
+  sparse-draw count and the argmax topic agree on >= 99% of documents, the
+  mean per-document L1 distance of normalised theta is <= 0.02;
+* K1, one sweep on the initial and on the trained state: draws differ on
+  <= 1e-3 of real tokens, and the sparse share and the mean S/(S+Q) agree
+  within 1e-3 absolute;
+* K2 and K4: equal to their plain versions (integer counts, exact);
+* serving: every theta sums to 1 (atol 1e-4), the planted major topic is
   recovered on >= 90% of documents, every answer after the swap carries
-  the new model version, and the kernel was launched.
+  the new model version, and K3 was launched;
+* training: K1 and K2 launched once per iteration plus once for fit's
+  warm-up iteration, the last LL/token above the first, phi == K4(z)
+  exactly, phi_sum == phi.sum(0), phi.sum() == number of tokens, every z
+  in [0, K).
 
 Fails (non-zero exit, no result line) without a CUDA card, outside a
 checkout of the repository, or when any phase fails.
@@ -54,6 +84,14 @@ SUM_ATOL = 1e-4
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+INT32_OPS = FP32_FLOPS / 2     # Hopper SM: 64 INT32 lanes to 128 FP32 lanes
+
+KERNELS = ("fold_in", "lda_sample", "phi_update")
+TRAIN_FLIP_RATE = 1e-3
+TRAIN_STAT_ATOL = 1e-3
+CMP_TILES = 1024               # heaviest-word tiles and tail tiles each
+TRAIN_SCALE = 1.0              # nytimes_like scale: the full NYTimes size
+TRAIN_ITERS = 10
 
 BATCH, BUCKETS, SWEEPS = 32, (32, 64, 128, 256), (8, 4)
 SERVE_DOCS, SWAP_DOCS = 256, 32
@@ -125,6 +163,283 @@ def time_ms(fn, n=20, warm=3):
     return times[len(times) // 2]
 
 
+def k1_bytes_and_ops(args, sparse, nb, bw):
+    """The least work of one sweep (K1): each input read once, each output
+    written once — of phi only the rows of the tiles' words, of the ELL only
+    each present doc's live (non-zero) entries; float operations: 4 per
+    tile and topic (p* and its prefix sums) and, per real token, 2 per live
+    ELL entry (S) + 2 (the side) + the search's compares (the live entries
+    for a sparse draw, nb + bw for a dense one)."""
+    import torch
+
+    (tile_word, token_doc, mask, z, phi, phi_sum, cnt, tpc, uni) = args
+    n, t = z.shape
+    K = phi.shape[1]
+    live = (cnt > 0).sum(1)                                  # (D,)
+    docs = torch.zeros_like(live, dtype=torch.bool)
+    docs[token_doc[mask].long()] = True
+    tok_live = live[token_doc.long()][mask].to(torch.int64)
+    sp = sparse[mask]
+    nbytes = (n * 4 + n * t * (4 + 1 + 2 * z.element_size() + 8 + 1 + 4)
+              + int(torch.unique(tile_word).numel()) * K * 4 + K * 4
+              + int(live[docs].sum()) * 8)
+    ops = (4 * K * n + int((2 * tok_live + 2).sum())
+           + int(tok_live[sp].sum()) + int((~sp).sum()) * (nb + bw))
+    return nbytes, ops
+
+
+def count_bytes_and_ops(n, t, z_bytes, V, K, real, delta: bool):
+    """K2 / K4: tile words, z (and z_old) and the mask read once, the
+    (V, K) int32 output written once; one integer add per real token and
+    z array."""
+    nbytes = n * 4 + n * t * (z_bytes * (2 if delta else 1) + 1) + V * K * 4
+    return nbytes, real * (2 if delta else 1)
+
+
+def bound(nbytes, ops, ops_rate):
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_rate * 1e3
+    return dict(bytes=nbytes, ops=ops, bytes_ms=b_ms, ops_ms=o_ms,
+                bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations")
+
+
+def k1_vs_plain(full, kw, state: str) -> float:
+    """One sweep of K1 and of its plain version from the same state and
+    uniforms, on the heaviest word's first CMP_TILES tiles and the last
+    CMP_TILES (tail) tiles; emits the comparison, raises past the bounds,
+    and returns the largest S/(S+Q) error where the draws agree."""
+    import torch
+
+    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.lda_sample import ref as k1_ref
+
+    n = full[0].shape[0]
+    dev = full[0].device
+    idx = (torch.arange(n, device=dev) if n <= 2 * CMP_TILES else
+           torch.cat([torch.arange(CMP_TILES, device=dev),
+                      torch.arange(n - CMP_TILES, n, device=dev)]))
+    sl = tuple(a[idx].contiguous() if a.shape[0] == n else a for a in full)
+    zk, spk, ssqk = k1.lda_sample_tiles(*sl, **kw)
+    zr, spr, ssqr = k1_ref.lda_sample_tiles_ref(*sl, **kw)
+    torch.cuda.synchronize()
+    m = sl[2]
+    real = int(m.sum())
+    flips = int(((zk != zr) & m).sum())
+    same = (zk == zr) & m
+    err = float((ssqk - ssqr)[same].abs().max())
+    sp_diff = abs(float(spk[m].float().mean()) - float(spr[m].float().mean()))
+    ssq_diff = abs(float(ssqk[m].mean()) - float(ssqr[m].mean()))
+    emit("train_k1_vs_plain", state=state, tiles=int(idx.numel()),
+         words=int(torch.unique(sl[0]).numel()), real_tokens=real,
+         flips=flips, flip_rate=flips / real,
+         sparse_share=float(spk[m].float().mean()),
+         sparse_share_diff=sp_diff, mean_ssq=float(ssqk[m].mean()),
+         mean_ssq_diff=ssq_diff, ssq_max_abs_err_where_equal=err)
+    if flips / real > TRAIN_FLIP_RATE:
+        raise AssertionError(f"K1 draws differ on {flips}/{real} tokens "
+                             f"({state} state)")
+    if sp_diff > TRAIN_STAT_ATOL or ssq_diff > TRAIN_STAT_ATOL:
+        raise AssertionError(f"K1 sparse share / S-share differ by "
+                             f"{sp_diff} / {ssq_diff} ({state} state)")
+    return err
+
+
+def train_phases(card: str, scale: float, iters: int,
+                 device="cuda:0") -> list[dict]:
+    """Phases 7-13; returns the kernels-line rows of K1, K2 and K4."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import lda_nytimes
+    from repro_torch.core import trainer, updates
+    from repro_torch.core.corpus import tile_corpus
+    from repro_torch.core.sampler import draw_sweep_uniforms, pick_search_block
+    from repro_torch.data.synthetic import nytimes_like
+    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.lda_sample import ref as k1_ref
+    from repro_torch.kernels.phi_update import kernel as k24
+    from repro_torch.kernels.phi_update import ops as phi_ops
+    from repro_torch.kernels.phi_update import ref as k24_ref
+    from repro_torch.train import fit
+
+    dev = torch.device(device)
+
+    # -- 7. host preparation -------------------------------------------------
+    t0 = time.perf_counter()
+    corpus = nytimes_like(scale, seed=0)
+    t_corpus = time.perf_counter() - t0
+    cfg = trainer.resolve_config(lda_nytimes.CONFIG, corpus)
+    t0 = time.perf_counter()
+    shard = tile_corpus(corpus, 1, cfg.tile_tokens)[0]
+    t_tile = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shard = shard.to(dev)
+    torch.cuda.synchronize()
+    t_h2d = time.perf_counter() - t0
+    n, t = shard.token_doc.shape
+    V, K, P = corpus.num_words, cfg.num_topics, cfg.ell_capacity
+    nb, bw = K // pick_search_block(K), pick_search_block(K)
+    emit("train_prep", scale=scale, docs=corpus.num_docs, V=V, K=K, P=P,
+         tiles=n, tile_tokens=t, real_tokens=shard.num_tokens,
+         slots=n * t, corpus_s=t_corpus, tiling_s=t_tile, to_device_s=t_h2d)
+
+    # -- 8. K1 against its plain version on heavy + tail tiles ---------------
+    state0 = trainer.init_state(cfg, shard)
+    ell_c, ell_t, _ = updates.theta_to_ell(updates.theta_from_z(
+        state0.z, shard.token_doc, shard.token_mask, shard.num_docs_local, K),
+        P)
+    uni = draw_sweep_uniforms(trainer.iteration_generator(cfg, 0, dev), n, t)
+    full = (shard.tile_word, shard.token_doc, shard.token_mask, state0.z,
+            state0.phi_vk, state0.phi_sum, ell_c, ell_t, uni)
+    kw = dict(alpha=cfg.resolved_alpha(), beta=cfg.beta, num_words_total=V)
+    k1_err = k1_vs_plain(full, kw, "initial")
+
+    # -- 9. K2 and K4 against their plain versions at full V x K -------------
+    z1, sp1, _ = k1.lda_sample_tiles(*full, **kw)
+    tw, tf, tm = shard.tile_word, shard.tile_first, shard.token_mask
+    dk = k24.phi_delta_tiles(tw, z1, state0.z, tm, V, K)
+    dr = k24_ref.phi_delta_tiles_ref(tw, tf, z1, state0.z, tm, V, K)
+    uk = k24.phi_update_tiles(tw, z1, tm, V, K)
+    ur = k24_ref.phi_update_tiles_ref(tw, tf, z1, tm, V, K)
+    torch.cuda.synchronize()
+    k2_err = int((dk - dr).abs().max())
+    k4_err = int((uk - ur).abs().max())
+    emit("train_counts_vs_plain", V=V, K=K, delta_equal=torch.equal(dk, dr),
+         update_equal=torch.equal(uk, ur),
+         advance_exact=torch.equal(state0.phi_vk + dk, uk),
+         moved_tokens=int(((z1 != state0.z) & tm).sum()),
+         k2_max_abs_err=k2_err, k4_max_abs_err=k4_err)
+    if not (torch.equal(dk, dr) and torch.equal(uk, ur)
+            and torch.equal(state0.phi_vk + dk, uk)):
+        raise AssertionError("K2 / K4 differ from their plain versions")
+    del dk, dr, uk, ur
+
+    # -- 10. times at full width ---------------------------------------------
+    words = tw.long()[:, None].expand(n, t)[tm]
+    new_flat = words * K + z1[tm].long()
+    old_flat = words * K + state0.z[tm].long()
+    ones = torch.ones_like(new_flat, dtype=torch.int32)
+    idx2, val2 = torch.cat([new_flat, old_flat]), torch.cat([ones, -ones])
+    out_flat = torch.empty(V * K, dtype=torch.int32, device=dev)
+
+    def library(ix, val):
+        out_flat.zero_()
+        out_flat.index_add_(0, ix, val)
+
+    timing = {}
+    timing["k1"] = dict(
+        ms=time_ms(lambda: k1.lda_sample_tiles(*full, **kw)),
+        plain_ms=time_ms(lambda: k1_ref.lda_sample_tiles_ref(
+            *full, tiles_per_step=512, **kw), n=3, warm=1),
+        **bound(*k1_bytes_and_ops(full, sp1, nb, bw), FP32_FLOPS))
+    real_tok = shard.num_tokens
+    timing["k2"] = dict(
+        ms=time_ms(lambda: k24.phi_delta_tiles(tw, z1, state0.z, tm, V, K)),
+        plain_ms=time_ms(lambda: k24_ref.phi_delta_tiles_ref(
+            tw, tf, z1, state0.z, tm, V, K)),
+        library_ms=time_ms(lambda: library(idx2, val2)),
+        **bound(*count_bytes_and_ops(n, t, z1.element_size(), V, K, real_tok,
+                                     True), INT32_OPS))
+    timing["k4"] = dict(
+        ms=time_ms(lambda: k24.phi_update_tiles(tw, z1, tm, V, K)),
+        plain_ms=time_ms(lambda: k24_ref.phi_update_tiles_ref(
+            tw, tf, z1, tm, V, K)),
+        library_ms=time_ms(lambda: library(new_flat, ones)),
+        **bound(*count_bytes_and_ops(n, t, z1.element_size(), V, K, real_tok,
+                                     False), INT32_OPS))
+    emit("train_timing", card=card, state="initial", **timing)
+    del words, new_flat, old_flat, ones, idx2, val2, z1, sp1, uni, full
+    del state0, ell_c, ell_t
+    torch.cuda.empty_cache()
+
+    # -- 11. the training main path ------------------------------------------
+    counters = (k1.lda_sample_tiles, k24.phi_delta_tiles,
+                k24.phi_update_tiles)
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    res = fit(corpus, lda_nytimes.CONFIG, iters, device=dev, shard=shard,
+              eval_every=1)
+    st = res.state
+    rebuilt = phi_ops.phi_update(tw, tf, st.z, tm, num_words=V, num_topics=K)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in counters}
+    tps = res.tokens_per_sec
+    emit("train", card=card, iters=iters, compile_sec=res.compile_sec,
+         tokens_per_sec=tps, median_tokens_per_sec=float(np.median(tps)),
+         ll_per_token=res.ll_per_token,
+         sparse_frac=[s[0] for s in res.stats],
+         ell_overflow=[s[1] for s in res.stats],
+         mean_s_over_sq=[s[2] for s in res.stats], launches=launches,
+         wall_s=wall, peak_bytes=torch.cuda.max_memory_allocated(dev))
+    if launches["lda_sample_tiles"] != iters + 1 or \
+            launches["phi_delta_tiles"] != iters + 1:
+        raise AssertionError(f"K1/K2 not launched once per iteration (+1 "
+                             f"warm-up): {launches}")
+    if launches["phi_update_tiles"] < 1:
+        raise AssertionError("K4 was not launched on the training path")
+    if not res.ll_per_token[-1] > res.ll_per_token[0]:
+        raise AssertionError(f"LL/token did not rise: {res.ll_per_token}")
+    if not torch.equal(st.phi_vk, rebuilt):
+        raise AssertionError("phi != K4(z) after training")
+    if not torch.equal(st.phi_sum, updates.phi_totals(st.phi_vk)):
+        raise AssertionError("phi_sum != phi.sum(0)")
+    if int(st.phi_vk.sum(dtype=torch.int64)) != corpus.num_tokens:
+        raise AssertionError("phi.sum() != number of tokens")
+    if not bool(((st.z >= 0) & (st.z < K)).all()):
+        raise AssertionError("a topic assignment is outside [0, K)")
+
+    # -- 12. K1 against its plain version on the trained state ---------------
+    theta = updates.theta_from_z(st.z, shard.token_doc, tm,
+                                 shard.num_docs_local, K)
+    c, tp, _ = updates.theta_to_ell(theta, P)
+    gen = trainer.iteration_generator(cfg, st.iteration, dev)
+    u = draw_sweep_uniforms(gen, n, t)
+    fin = (tw, shard.token_doc, tm, st.z, st.phi_vk, st.phi_sum, c, tp, u)
+    k1_err = max(k1_err, k1_vs_plain(fin, kw, "trained"))
+
+    # -- 13. where an iteration's time goes (final state) ---------------------
+    z2, sp2, _ = k1.lda_sample_tiles(*fin, **kw)
+    d2 = k24.phi_delta_tiles(tw, z2, st.z, tm, V, K)
+    steps = dict(
+        theta_from_z=lambda: updates.theta_from_z(
+            st.z, shard.token_doc, tm, shard.num_docs_local, K),
+        theta_to_ell=lambda: updates.theta_to_ell(theta, P),
+        draw_uniforms=lambda: draw_sweep_uniforms(gen, n, t),
+        k1_sweep=lambda: k1.lda_sample_tiles(*fin, **kw),
+        k2_phi_delta=lambda: k24.phi_delta_tiles(tw, z2, st.z, tm, V, K),
+        phi_advance=lambda: updates.phi_totals(st.phi_vk + d2),
+        log_likelihood=lambda: trainer.log_likelihood(cfg, shard, st))
+    ms = {k: time_ms(f, n=5, warm=1) for k, f in steps.items()}
+    k1_final = bound(*k1_bytes_and_ops(fin, sp2, nb, bw), FP32_FLOPS)
+    emit("train_breakdown", card=card, iteration=st.iteration, ms=ms,
+         iteration_ms=sum(v for k, v in ms.items() if k != "log_likelihood"),
+         k1_final_bound=k1_final,
+         sparse_share=float(sp2[tm].float().mean()))
+
+    def row(name, src, replaces, key, err, launched):
+        k = timing[key]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": launched,
+                "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": k.get("library_ms")}
+
+    ks = "src/repro_torch/kernels/"
+    return [
+        row("lda_sample_tiles", ks + "lda_sample/csrc/lda_sample.cu",
+            "src/repro/kernels/lda_sample/kernel.py:194", "k1", k1_err,
+            launches["lda_sample_tiles"]),
+        row("phi_delta_tiles", ks + "phi_update/csrc/phi_update.cu",
+            "src/repro/kernels/phi_update/kernel.py:81", "k2", k2_err,
+            launches["phi_delta_tiles"]),
+        row("phi_update_tiles", ks + "phi_update/csrc/phi_update.cu",
+            "src/repro/kernels/phi_update/kernel.py:112", "k4", k4_err,
+            launches["phi_update_tiles"]),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -148,10 +463,11 @@ def main() -> int:
 
     # -- 2. build every kernel from the checkout's sources -----------------
     t0 = time.perf_counter()
-    logs = _build.build_all(["fold_in"])
-    regs = [ln.strip() for ln in logs["fold_in"].splitlines()
-            if "registers" in ln]
-    emit("build", seconds=time.perf_counter() - t0, ptxas=regs)
+    logs = _build.build_all(KERNELS)
+    emit("build", seconds=time.perf_counter() - t0, ptxas={
+        name: [ln.strip() for ln in log.splitlines()
+               if "registers" in ln or "spill" in ln]
+        for name, log in logs.items()})
 
     # -- planted NYTimes-width model on the card ----------------------------
     V = lda_nytimes.FULL["num_words"]
@@ -287,14 +603,19 @@ def main() -> int:
                 for k, (n, tot) in sorted(spans.items())})
 
     main_row = rows[-1]
-    print(json.dumps({"kernels": [{
+    k3_row = {
         "name": "fold_in_docs", "route": "cuda",
         "source": "src/repro_torch/kernels/fold_in/csrc/fold_in.cu",
         "replaces": "src/repro/kernels/fold_in/kernel.py:184",
         "launches": launches, "max_abs_err": max_abs_err,
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}
+    del snap, snap2, model, engine, one, full, kf, rf, k1, r1, args
+    torch.cuda.empty_cache()
+
+    train_rows = train_phases(card, TRAIN_SCALE, TRAIN_ITERS)
+    print(json.dumps({"kernels": [k3_row] + train_rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

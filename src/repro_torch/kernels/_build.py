@@ -1,5 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` at first use and load them
-with ctypes.
+"""Build the port's CUDA kernels with ``nvcc`` at first use, load them with
+ctypes, and check the tensors handed to them.
 
 Each ``csrc/*.cu`` source has a plain C interface and compiles on its own
 into ``build/kernels/<name>-<hash>.so`` under the repository root (the hash
@@ -18,6 +18,8 @@ import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
@@ -92,3 +94,33 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+def check_tensor(name, t, dtypes, shape, device):
+    """Raise ValueError unless ``t`` is a contiguous tensor on ``device`` of
+    one of ``dtypes`` (a dtype or a tuple of them) and ``shape``."""
+    dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected "
+                         f"{' or '.join(str(d) for d in dtypes)}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def require_cuda(t, kernel: str, plain: str) -> torch.device:
+    """The device of ``t``, which must be a CUDA device: the kernels refuse
+    CPU tensors (those go to the plain version)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel} launches a CUDA kernel; CPU tensors go to "
+                         f"{plain}")
+    return t.device
+
+
+def current_stream(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -37,18 +37,6 @@ def _lib():
     return lib
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def fold_in_docs(
     phi_tok,       # (B, L, K) int32 — pre-gathered phi rows
     phi_sum,       # (K,) int32
@@ -66,28 +54,27 @@ def fold_in_docs(
 
     Returns (theta_sum (B, K) int32, sparse_draws (B,) int32, ssq_sum (B,)
     float32, z (B, L) int32 — the final assignments)."""
-    if phi_tok.device.type != "cuda":
-        raise ValueError("fold_in_docs launches a CUDA kernel; CPU tensors "
-                         "go to ref.fold_in_docs_ref")
-    dev = phi_tok.device
+    dev = _build.require_cuda(phi_tok, "fold_in_docs",
+                              "ref.fold_in_docs_ref")
     B, L, K = phi_tok.shape
     n_sweeps = burn_in + samples
     P = int(ell_capacity)
     if not 1 <= P <= min(L, K):
         raise ValueError(f"ell_capacity {P} must be in [1, min(L, K)]")
-    _check("phi_tok", phi_tok, torch.int32, (B, L, K), dev)
-    _check("phi_sum", phi_sum, torch.int32, (K,), dev)
-    _check("hyper", hyper, torch.float32, (2,), dev)
-    _check("uniforms", uniforms, torch.float32, (B, n_sweeps, L, 2), dev)
-    _check("mask", mask, torch.int32, (B, L), dev)
-    _check("z0", z0, torch.int32, (B, L), dev)
+    _build.check_tensor("phi_tok", phi_tok, torch.int32, (B, L, K), dev)
+    _build.check_tensor("phi_sum", phi_sum, torch.int32, (K,), dev)
+    _build.check_tensor("hyper", hyper, torch.float32, (2,), dev)
+    _build.check_tensor("uniforms", uniforms, torch.float32,
+                        (B, n_sweeps, L, 2), dev)
+    _build.check_tensor("mask", mask, torch.int32, (B, L), dev)
+    _build.check_tensor("z0", z0, torch.int32, (B, L), dev)
     theta_sum = torch.empty((B, K), dtype=torch.int32, device=dev)
     sp = torch.empty((B,), dtype=torch.int32, device=dev)
     ssq = torch.empty((B,), dtype=torch.float32, device=dev)
     z = torch.empty((B, L), dtype=torch.int32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = _build.current_stream(dev)
         err = lib.fold_in_docs_launch(
             phi_tok.data_ptr(), phi_sum.data_ptr(), hyper.data_ptr(),
             uniforms.data_ptr(), mask.data_ptr(), z0.data_ptr(),

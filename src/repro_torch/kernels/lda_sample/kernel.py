@@ -1,0 +1,109 @@
+"""CUDA training-sweep kernel for Hopper: the wrapper around
+``csrc/lda_sample.cu``.
+
+Replaces ``repro/kernels/lda_sample/kernel.py::lda_sample_tiles`` (K1, the
+Pallas TPU kernel): one delayed-count S/Q sweep over word tiles.  The TPU
+kernel stages a chunk's (C, K) phi table, which does not fit a block's
+shared memory at NYTimes width; here one CTA takes one tile (the paper's
+layout) with its word's p* and search sums in shared memory, and one warp
+per token reads the token's document ELL row from device memory.  The
+kernel reads no chunk plan, so ``build_chunk_plan``/``build_sweep_plans``
+of the JAX package have no counterpart here.
+
+What bounds it: bytes — every token reads its document's live ELL entries
+from device memory (the (D, P) ELL is far larger than L2), besides the
+uniforms and the per-token inputs and outputs; see the source note.
+
+Built with ``nvcc`` for ``sm_90a`` at first launch (``kernels/_build.py``)
+and bound with ctypes.  The wrapper refuses CPU tensors: ``ops.py`` sends
+those to the plain version in ``ref.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.sampler import pick_search_block
+from repro_torch.kernels import _build
+
+_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+Z_DTYPES = (torch.int16, torch.int32)
+THREADS = 256                    # csrc/lda_sample.cu kThreads
+MAX_SMEM_BYTES = 232_448         # a Hopper block's shared-memory limit
+
+
+def smem_bytes(t: int, K: int, P: int) -> int:
+    """Dynamic shared memory of one CTA (``lda_sample_smem_bytes``)."""
+    return 4 * (2 * K + K // pick_search_block(K) + (THREADS // 32) * P
+                + 2 * t) + 4 * 2 * t
+
+
+def _lib():
+    lib = _build.load("lda_sample")
+    fn = lib.lda_sample_tiles_launch
+    if fn.argtypes is None:   # pointers and the stream as c_void_p, not int
+        fn.argtypes = [_vp] * 12 + [_i] * 6 + [_f, _f, _i, _vp]
+        fn.restype = _i
+    return lib
+
+
+def lda_sample_tiles(
+    tile_word,     # (n,) int32
+    token_doc,     # (n, t) int32 — local doc id per token
+    token_mask,    # (n, t) bool
+    z_old,         # (n, t) int16 or int32
+    phi_vk,        # (V, K) int32
+    phi_sum,       # (K,) int32
+    ell_counts,    # (D, P) int32 — per-doc ELL, zero counts last
+    ell_topics,    # (D, P) int32
+    uniforms,      # (n, t, 2) float32
+    *,
+    alpha: float,
+    beta: float,
+    num_words_total: int,
+):
+    """Launch one sweep on the current stream; does not synchronise.
+
+    Returns (z_new (n, t) like z_old, sparse (n, t) bool, ssq (n, t)
+    float32 — S/(S+Q) per token, 0 on padding)."""
+    dev = _build.require_cuda(z_old, "lda_sample_tiles",
+                              "ref.lda_sample_tiles_ref")
+    n, t = z_old.shape
+    V, K = phi_vk.shape
+    D, P = ell_counts.shape
+    chk = _build.check_tensor
+    chk("tile_word", tile_word, torch.int32, (n,), dev)
+    chk("token_doc", token_doc, torch.int32, (n, t), dev)
+    chk("token_mask", token_mask, torch.bool, (n, t), dev)
+    chk("z_old", z_old, Z_DTYPES, (n, t), dev)
+    chk("phi_vk", phi_vk, torch.int32, (V, K), dev)
+    chk("phi_sum", phi_sum, torch.int32, (K,), dev)
+    chk("ell_counts", ell_counts, torch.int32, (D, P), dev)
+    chk("ell_topics", ell_topics, torch.int32, (D, P), dev)
+    chk("uniforms", uniforms, torch.float32, (n, t, 2), dev)
+    if not 1 <= P <= K:
+        raise ValueError(f"ELL width {P} must be in [1, K={K}]")
+    smem = smem_bytes(t, K, P)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"tile {t} x K {K} x P {P} needs {smem} bytes of "
+                         f"shared memory, over {MAX_SMEM_BYTES}")
+    z_new = torch.empty_like(z_old)
+    sparse = torch.empty((n, t), dtype=torch.bool, device=dev)
+    ssq = torch.empty((n, t), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().lda_sample_tiles_launch(
+            tile_word.data_ptr(), token_doc.data_ptr(), token_mask.data_ptr(),
+            z_old.data_ptr(), phi_vk.data_ptr(), phi_sum.data_ptr(),
+            ell_counts.data_ptr(), ell_topics.data_ptr(), uniforms.data_ptr(),
+            z_new.data_ptr(), sparse.data_ptr(), ssq.data_ptr(),
+            n, t, K, P, pick_search_block(K), z_old.element_size(),
+            float(alpha), float(beta), int(num_words_total),
+            _build.current_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"lda_sample_tiles launch failed: CUDA error {err}")
+    lda_sample_tiles.launches += 1
+    return z_new, sparse, ssq
+
+
+lda_sample_tiles.launches = 0   # kernel launches since the last reset

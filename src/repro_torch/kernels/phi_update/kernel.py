@@ -1,0 +1,90 @@
+"""CUDA word-row count kernels for Hopper: the wrappers around
+``csrc/phi_update.cu``.
+
+Replace ``repro/kernels/phi_update/kernel.py::phi_delta_tiles`` (K2, the
+trainer's per-iteration phi delta) and ``::phi_update_tiles`` (K4, a full
+rebuild of phi from z), the Pallas TPU kernels.  One CTA per word tile
+builds the tile's K-bin histogram in shared memory and adds its non-zero
+bins into the word's row of a zeroed (V, K) int32 output with integer
+atomics: exact in any order, so rows that no tile visits stay 0 and
+``tile_first`` is not needed (padding tiles have an all-false mask).
+
+What bounds them: bytes — reading z (int16 or int32), the mask and the tile
+words once and writing the (V, K) output once; see the source note.
+
+Built with ``nvcc`` for ``sm_90a`` at first launch (``kernels/_build.py``)
+and bound with ctypes.  The wrappers refuse CPU tensors: ``ops.py`` sends
+those to the plain versions in ``ref.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+Z_DTYPES = (torch.int16, torch.int32)
+
+
+def _lib():
+    lib = _build.load("phi_update")
+    if lib.phi_delta_tiles_launch.argtypes is None:
+        # pointers and the stream as c_void_p: ctypes would cut them to int
+        lib.phi_delta_tiles_launch.argtypes = [_vp] * 5 + [_i] * 5 + [_vp]
+        lib.phi_delta_tiles_launch.restype = _i
+        lib.phi_update_tiles_launch.argtypes = [_vp] * 4 + [_i] * 5 + [_vp]
+        lib.phi_update_tiles_launch.restype = _i
+    return lib
+
+
+def _check_tiles(tile_word, zs, token_mask):
+    dev = _build.require_cuda(tile_word, "the phi_update kernels",
+                              "ref.py")
+    n, t = zs[0].shape
+    _build.check_tensor("tile_word", tile_word, torch.int32, (n,), dev)
+    z_dtype = zs[0].dtype if zs[0].dtype in Z_DTYPES else Z_DTYPES
+    for name, z in zip(("z_new", "z_old"), zs):
+        _build.check_tensor(name, z, z_dtype, (n, t), dev)
+    _build.check_tensor("token_mask", token_mask, torch.bool, (n, t), dev)
+    return dev, n, t
+
+
+def phi_delta_tiles(tile_word, z_new, z_old, token_mask, num_words: int,
+                    num_topics: int) -> torch.Tensor:
+    """(V, K) int32: counts(z_new) - counts(z_old) per word row over the
+    masked tokens.  tile_word (n,) int32; z_new, z_old (n, t) int16 or int32
+    (the same); token_mask (n, t) bool.  Launches on the current stream and
+    does not synchronise."""
+    dev, n, t = _check_tiles(tile_word, (z_new, z_old), token_mask)
+    out = torch.empty((num_words, num_topics), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().phi_delta_tiles_launch(
+            tile_word.data_ptr(), z_new.data_ptr(), z_old.data_ptr(),
+            token_mask.data_ptr(), out.data_ptr(), n, t, num_words,
+            num_topics, z_new.element_size(), _build.current_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"phi_delta_tiles launch failed: CUDA error {err}")
+    phi_delta_tiles.launches += 1
+    return out
+
+
+def phi_update_tiles(tile_word, z, token_mask, num_words: int,
+                     num_topics: int) -> torch.Tensor:
+    """(V, K) int32: counts(z) per word row over the masked tokens."""
+    dev, n, t = _check_tiles(tile_word, (z,), token_mask)
+    out = torch.empty((num_words, num_topics), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().phi_update_tiles_launch(
+            tile_word.data_ptr(), z.data_ptr(), token_mask.data_ptr(),
+            out.data_ptr(), n, t, num_words, num_topics, z.element_size(),
+            _build.current_stream(dev))
+    if err != 0:
+        raise RuntimeError(f"phi_update_tiles launch failed: CUDA error {err}")
+    phi_update_tiles.launches += 1
+    return out
+
+
+phi_delta_tiles.launches = 0    # kernel launches since the last reset
+phi_update_tiles.launches = 0

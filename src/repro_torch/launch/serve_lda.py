@@ -4,17 +4,24 @@ The port of ``repro.launch.serve_lda``: a snapshot is loaded onto the card
 and this process answers per-document topic queries through the
 continuous-batching engine with hot-swap.
 
-Self-driving benchmark (builds a planted model if the snapshot is missing,
-serves a request storm, hot-swaps a second model mid-flight):
+Self-driving benchmark (trains a small synthetic model if the snapshot is
+missing, serves a request storm, hot-swaps a further-trained model
+mid-flight):
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lda --snapshot /tmp/lda.npz --bench
 
-Until training is ported, ``--bench`` with a missing snapshot does not
-train: it builds a *planted* model from ``--seed`` at the configured width
-(NYTimes by default: V = 101,636, K = 1024) and a second one from seed + 1
-as the hot-swap v2.  A planted model has a known answer: every word has a
-home topic holding ~80% of its Zipf count, and request documents drawn from
-two topics' home words must fold in to their major topic.
+As in the reference, the bench trains through ``repro_torch.train.fit`` on
+``lda_corpus`` (256 docs, 400 words, K = ``--topics``, 32 by default) for
+``--train-iters`` iterations and exports the state with
+``snapshot_from_state``; the hot-swap v2 model is the same chain trained 15
+iterations further.
+
+``planted_model``, ``planted_snapshot`` and ``planted_docs`` build a
+*planted* model from a seed at NYTimes width (V = 101,636, K = 1024) and
+documents drawn from it, for a check of serving at full width
+(``chip_smoke.py``).  A planted model has a known answer: every word has a
+home topic holding ~80% of its Zipf count, and documents drawn from two
+topics' home words must fold in to their major topic.
 
 HTTP JSON endpoint (stdlib only):
 
@@ -42,13 +49,14 @@ from repro_torch.configs import lda_nytimes
 ZIPF_EXPONENT = 1.1      # the word-frequency skew of data.synthetic.nytimes_like
 HOME_SHARE = 0.8         # planted model: share of a word's count on its home
 SPREAD_TOPICS = 3        # ... the rest over this many seeded topics
+TRAIN_TOPICS = 32        # K of the bench's trained model, as the reference
 
 
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--snapshot", required=True, help="snapshot .npz path")
     ap.add_argument("--bench", action="store_true",
-                    help="self-drive: plant-if-missing, storm, hot-swap demo")
+                    help="self-drive: train-if-missing, storm, hot-swap demo")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda:0; 'cpu' runs the "
                          "plain PyTorch fold-in)")
@@ -95,17 +103,17 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--sanitize", action="store_true",
                     help="debug mode: runtime lock-held assertions in the "
                          "engine")
-    # bench-mode model knobs (planted model, NYTimes width by default)
-    ap.add_argument("--topics", type=int, default=lda_nytimes.NUM_TOPICS)
-    ap.add_argument("--vocab", type=int,
-                    default=lda_nytimes.FULL["num_words"])
+    # bench-mode model knobs
+    ap.add_argument("--topics", type=int, default=TRAIN_TOPICS,
+                    help="K of the bench's trained model")
+    ap.add_argument("--train-iters", type=int, default=25)
     ap.add_argument("--bench-docs", type=int, default=96)
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
 # ---------------------------------------------------------------------------
-# planted model (stands in for a trained one until training is ported)
+# planted model (a model with a known answer, at NYTimes width)
 # ---------------------------------------------------------------------------
 
 def zipf_weights(num_words: int) -> np.ndarray:
@@ -260,33 +268,47 @@ def _dump_obs(args, model, engine):
 # bench mode
 # ---------------------------------------------------------------------------
 
+def _train_and_export(args, extra_iters: int = 0):
+    """Train the small synthetic model and export a snapshot to
+    ``args.snapshot``, as the reference's bench does.  Returns the
+    ``TrainResult``."""
+    from repro_torch.core import trainer
+    from repro_torch.data.synthetic import lda_corpus
+    from repro_torch.serve import save_snapshot, snapshot_from_state
+    from repro_torch.train import fit
+
+    K = args.topics
+    corpus = lda_corpus(num_docs=256, num_words=400, num_topics=K,
+                        avg_doc_len=64, seed=args.seed)
+    cfg = trainer.LDAConfig(num_topics=K, tile_tokens=64, tiles_per_step=16,
+                            seed=args.seed)
+    n = args.train_iters + extra_iters
+    res = fit(corpus, cfg, n, device=args.device, eval_every=n)
+    save_snapshot(args.snapshot, snapshot_from_state(
+        res.state, cfg.resolved_alpha(), cfg.beta,
+        num_words_total=corpus.num_words, device=args.device))
+    return res
+
+
 def run_bench(args) -> int:
-    from repro_torch.data.synthetic import zipf_corpus
-    from repro_torch.serve import save_snapshot
+    from repro_torch.data.synthetic import lda_corpus
     from repro_torch.serve.eval import docs_from_corpus, heldout_perplexity
 
     if not os.path.exists(args.snapshot):
-        print(f"[bench] no snapshot at {args.snapshot}; planting a "
-              f"V={args.vocab} K={args.topics} model from seed {args.seed}")
         t0 = time.perf_counter()
-        save_snapshot(args.snapshot, planted_snapshot(
-            args.vocab, args.topics, args.seed, device=args.device))
-        print(f"[bench] planted + exported in {time.perf_counter() - t0:.1f}s")
+        print(f"[bench] no snapshot at {args.snapshot}; training a "
+              f"K={args.topics} synthetic model ({args.train_iters} iters)")
+        res = _train_and_export(args)
+        print(f"[bench] LL/token {res.ll_per_token[-1]:.4f}")
+        print(f"[bench] trained + exported in {time.perf_counter() - t0:.1f}s")
     snap = load_model(args)
     print(f"[bench] snapshot: V={snap.num_words} K={snap.num_topics} "
           f"on {snap.device} meta={snap.meta}")
 
-    seed = snap.meta.get("planted_seed")
-    majors = None
-    if seed is not None:
-        _, home = planted_model(snap.num_words, snap.num_topics, int(seed))
-        docs, majors = planted_docs(home, snap.num_topics, args.bench_docs,
-                                    lda_nytimes.FULL["avg_doc_len"],
-                                    args.seed + 1)
-    else:
-        docs = docs_from_corpus(zipf_corpus(
-            args.bench_docs, snap.num_words,
-            lda_nytimes.FULL["avg_doc_len"], seed=args.seed + 1))
+    # unseen synthetic docs with the same vocabulary
+    docs = docs_from_corpus(lda_corpus(
+        num_docs=args.bench_docs, num_words=snap.num_words,
+        num_topics=snap.num_topics, avg_doc_len=64, seed=args.seed + 1))
 
     model, engine = make_engine(args, snap)
     print(f"[bench] fold-in impl: {args.impl}")
@@ -298,18 +320,17 @@ def run_bench(args) -> int:
           f"{stats['mean_batch']:.1f})")
     print(f"[bench] p50 {stats['p50_ms']:.1f} ms   p99 {stats['p99_ms']:.1f} ms"
           f"   {stats['docs_per_sec']:.1f} docs/sec")
-    if majors is not None:
-        got = np.asarray([int(r["theta"].argmax()) for r in results])
-        print(f"[bench] planted major topic recovered on "
-              f"{(got == majors).mean():.3f} of docs")
 
     ppl = heldout_perplexity(snap, docs[: min(32, len(docs))])
     print(f"[bench] held-out document-completion perplexity: "
           f"{ppl.perplexity:.1f} over {ppl.num_tokens} tokens")
 
-    # hot-swap: a second planted model; the engine keeps running
-    snap2 = planted_snapshot(snap.num_words, snap.num_topics, args.seed + 1,
-                             device=args.device)
+    # hot-swap: the same chain trained 15 iterations further; the engine
+    # keeps running
+    print(f"[bench] training {args.train_iters + 15} iters for the v2 "
+          "snapshot")
+    _train_and_export(args, extra_iters=15)
+    snap2 = load_model(args)
     v = model.publish(snap2)
     results2 = engine.infer_many(docs[:16])
     moved = max(float(np.abs(r2["theta"] - r1["theta"]).sum())

@@ -1,7 +1,8 @@
-"""Tests of the port that need a CUDA card: the fold-in kernel against its
-plain PyTorch version on the card, the wrapper's input checks, and the
-engine serving through the kernel.  Skipped without a card.  This file
-imports no JAX, so it runs on a machine that has only PyTorch:
+"""Tests of the port that need a CUDA card: the fold-in and training kernels
+against their plain PyTorch versions on the card, the wrappers' input checks,
+the engine and the trainer running through the kernels.  Skipped without a
+card.  This file imports no JAX, so it runs on a machine that has only
+PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -102,3 +103,172 @@ def test_engine_serves_through_kernel(dev):
         eng.stop()
     assert [int(r["theta"].argmax()) for r in out] == [0, 1, 2]
     assert kernel.fold_in_docs.launches > before
+
+
+# ---------------------------------------------------------------------------
+# training kernels: K1 (lda_sample), K2 (phi_delta), K4 (phi_update)
+# ---------------------------------------------------------------------------
+def sweep_case(K, dev, n=48, t=64, V=40, D=30, seed=0, z_dtype=torch.int16):
+    """Word tiles over a random corpus slice, a random phi and the ELL of a
+    random theta (zero counts last, as theta_to_ell gives)."""
+    from repro_torch.core import updates
+
+    rng = np.random.default_rng(seed)
+    tile_word = np.sort(rng.integers(0, V, n)).astype(np.int32)
+    token_doc = rng.integers(0, D, (n, t)).astype(np.int32)
+    lens = rng.integers(0, t + 1, n)
+    mask = np.arange(t)[None] < lens[:, None]
+    z = rng.integers(0, K, (n, t))
+    phi = rng.integers(0, 50, (V, K)).astype(np.int32)
+    theta = ((rng.random((D, K)) < 0.05) * rng.integers(1, 9, (D, K)))
+    theta[np.arange(D), rng.integers(0, K, D)] += 1
+    P = min(K, 64)
+    cnt, tpc = updates.ell_topk(torch.from_numpy(theta.astype(np.int32)), P)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    args = (T(tile_word), T(token_doc), T(mask), T(z).to(z_dtype), T(phi),
+            T(phi.sum(0).astype(np.int32)), cnt.to(dev), tpc.to(dev),
+            T(rng.random((n, t, 2), dtype=np.float32)))
+    return args, dict(alpha=50.0 / K, beta=0.01, num_words_total=V)
+
+
+@pytest.mark.parametrize("K", [96, 256, 1024])
+def test_lda_sample_kernel_matches_plain_version(dev, K):
+    """Draws agree up to float-order boundary flips (fault F2): at most 1%
+    of real tokens here (0 expected at K <= 256); padding slots keep z_old
+    and report 0; S/(S+Q) agrees to 1e-5 where the draws agree."""
+    from repro_torch.kernels.lda_sample import kernel as k1, ref as k1_ref
+
+    args, kw = sweep_case(K, dev, seed=K)
+    before = k1.lda_sample_tiles.launches
+    z, sp, ssq = k1.lda_sample_tiles(*args, **kw)
+    assert k1.lda_sample_tiles.launches == before + 1
+    zr, spr, ssqr = k1_ref.lda_sample_tiles_ref(*args, **kw)
+    torch.cuda.synchronize()
+    mask = args[2]
+    flips = int(((z != zr) & mask).sum())
+    assert flips <= 0.01 * int(mask.sum()), flips
+    assert torch.equal(z[~mask], args[3][~mask])
+    assert not bool(sp[~mask].any()) and float(ssq[~mask].abs().sum()) == 0
+    assert bool(((z >= 0) & (z < K)).all())
+    torch.testing.assert_close(ssq[mask], ssqr[mask], rtol=1e-5, atol=1e-6)
+    if K <= 256:
+        assert flips == 0 and torch.equal(sp, spr)
+
+
+@pytest.mark.parametrize("z_dtype", [torch.int16, torch.int32])
+def test_phi_kernels_exact(dev, z_dtype):
+    from repro_torch.kernels.phi_update import kernel as k24, ops, ref
+
+    K, V = 256, 40
+    args, _ = sweep_case(K, dev, V=V, seed=5, z_dtype=z_dtype)
+    tw, mask, z_old = args[0], args[2], args[3]
+    z_new = torch.randint(0, K, z_old.shape, device=dev).to(z_dtype)
+    first = torch.ones_like(tw, dtype=torch.bool)
+    before = (k24.phi_delta_tiles.launches, k24.phi_update_tiles.launches)
+    d = ops.phi_delta(tw, first, z_old, z_new, mask, num_words=V + 3,
+                      num_topics=K)
+    full = ops.phi_update(tw, first, z_new, mask, num_words=V + 3,
+                          num_topics=K)
+    assert (k24.phi_delta_tiles.launches,
+            k24.phi_update_tiles.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(d, ref.phi_delta_tiles_ref(tw, first, z_new, z_old,
+                                                  mask, V + 3, K))
+    assert torch.equal(full, ref.phi_update_tiles_ref(tw, first, z_new, mask,
+                                                      V + 3, K))
+    old = ops.phi_update(tw, first, z_old, mask, num_words=V + 3,
+                         num_topics=K)
+    assert torch.equal(old + d, full)
+    assert int(full[V:].abs().sum()) == 0         # rows no tile visits
+
+
+def test_training_wrappers_reject_bad_inputs(dev):
+    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.phi_update import kernel as k24
+
+    args, kw = sweep_case(96, dev, seed=3)
+    bad = list(args)
+    bad[4] = args[4].to(torch.int64)
+    with pytest.raises(ValueError, match="dtype"):
+        k1.lda_sample_tiles(*bad, **kw)
+    bad = list(args)
+    bad[8] = args[8].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.lda_sample_tiles(*bad, **kw)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k1.lda_sample_tiles(*(a.cpu() for a in args), **kw)
+    tw, mask, z = args[0], args[2], args[3]
+    with pytest.raises(ValueError, match="dtype"):
+        k24.phi_update_tiles(tw, z.to(torch.int64), mask, 40, 96)
+    with pytest.raises(ValueError, match="contiguous"):
+        k24.phi_delta_tiles(tw, z.t().contiguous().t(), z, mask, 40, 96)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k24.phi_update_tiles(tw.cpu(), z.cpu(), mask.cpu(), 40, 96)
+
+
+def test_fit_on_cuda_launches_training_kernels(dev):
+    """fit on cuda:0: K1 and K2 launch once per iteration (plus the warm-up
+    iteration), the sweep runs under the sync guard, and the counts stay
+    exact."""
+    from repro_torch.core import trainer, updates
+    from repro_torch.core.corpus import tile_corpus
+    from repro_torch.data.synthetic import lda_corpus
+    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.phi_update import kernel as k24
+    from repro_torch.kernels.phi_update import ops as phi_ops
+    from repro_torch.train import fit
+
+    corpus = lda_corpus(num_docs=60, num_words=120, num_topics=8,
+                        avg_doc_len=40, seed=2)
+    cfg = trainer.LDAConfig(num_topics=16, tile_tokens=32)
+    k1.lda_sample_tiles.launches = k24.phi_delta_tiles.launches = 0
+    res = fit(corpus, cfg, 3, device=dev, sanitize=True)
+    assert k1.lda_sample_tiles.launches == 4
+    assert k24.phi_delta_tiles.launches == 4
+    st = res.state
+    assert st.z.device.type == "cuda" and st.z.dtype == torch.int16
+    shard = tile_corpus(corpus, 1, 32)[0].to(dev)
+    assert torch.equal(st.phi_vk, phi_ops.phi_update(
+        shard.tile_word, shard.tile_first, st.z, shard.token_mask,
+        num_words=corpus.num_words, num_topics=16))
+    assert torch.equal(st.phi_sum, updates.phi_totals(st.phi_vk))
+    assert int(st.phi_vk.sum()) == corpus.num_tokens
+    assert len(res.ll_per_token) == 3 and res.compile_sec > 0
+
+
+@pytest.mark.parametrize("M", [1, 3])
+def test_lda_iteration_on_cuda_matches_plain(dev, M):
+    """One iteration, WorkSchedule1 and 2 (M = 3 pads the tile count),
+    from the same state and uniforms: through K1/K2 on the card and the
+    plain versions on the CPU.  Draws may flip on a float boundary (F2,
+    at most 1% here); the card's counts stay exact either way."""
+    from repro_torch.core import trainer
+    from repro_torch.core.corpus import tile_corpus
+    from repro_torch.data.synthetic import lda_corpus
+    from repro_torch.kernels.phi_update import ops as phi_ops
+
+    corpus = lda_corpus(num_docs=60, num_words=120, num_topics=8,
+                        avg_doc_len=40, seed=4)
+    cfg = trainer.resolve_config(trainer.LDAConfig(
+        num_topics=64, tile_tokens=32, micro_chunks=M), corpus)
+    shard = tile_corpus(corpus, 1, 32)[0]
+    n, t = shard.token_doc.shape
+    assert M == 1 or n % M
+    s0 = trainer.init_state(cfg, shard)
+    u = torch.rand((n + (-n % M), t, 2),
+                   generator=torch.Generator().manual_seed(M))
+    a, sa = trainer.lda_iteration(cfg, shard, s0, uniforms=u)
+    sd = shard.to(dev)
+    s0d = trainer.LDAState(z=s0.z.to(dev), phi_vk=s0.phi_vk.to(dev),
+                           phi_sum=s0.phi_sum.to(dev), iteration=0)
+    b, sb = trainer.lda_iteration(cfg, sd, s0d, uniforms=u.to(dev))
+    torch.cuda.synchronize()
+    mask = shard.token_mask
+    flips = int(((a.z != b.z.cpu()) & mask).sum())
+    assert flips <= 0.01 * int(mask.sum()), flips
+    if flips == 0:
+        assert torch.equal(a.phi_vk, b.phi_vk.cpu())
+    assert torch.equal(b.phi_vk, phi_ops.phi_update(
+        sd.tile_word, sd.tile_first, b.z, sd.token_mask,
+        num_words=corpus.num_words, num_topics=64))
+    assert torch.equal(b.phi_sum, b.phi_vk.sum(0, dtype=torch.int32))
+    assert abs(float(sa.sparse_frac) - float(sb.sparse_frac)) < 0.01

@@ -116,3 +116,71 @@ def test_chip_smoke_refuses_without_cuda():
                          cwd=str(ROOT), timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+@pytest.mark.parametrize("name", ["fold_in", "lda_sample", "phi_update"])
+def test_every_kernel_source_is_found(name):
+    from repro_torch.kernels import _build
+
+    src = _build.source_path(name)
+    assert src.exists() and src.suffix == ".cu"
+    assert "extern \"C\"" in src.read_text()
+    assert _build.library_path(name).name.startswith(f"{name}-")
+
+
+def _tiny_training():
+    from repro_torch.core.trainer import LDAConfig
+    from repro_torch.data.synthetic import lda_corpus
+
+    return (lda_corpus(num_docs=8, num_words=20, num_topics=2,
+                       avg_doc_len=10, seed=0),
+            LDAConfig(num_topics=4, tile_tokens=8))
+
+
+def test_fit_defaults_to_cuda(monkeypatch):
+    """fit with no device means the card: without one it raises, and runs
+    on the CPU only when asked."""
+    from repro_torch.train import fit
+
+    corpus, cfg = _tiny_training()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit(corpus, cfg, 1)
+    res = fit(corpus, cfg, 1, device="cpu")
+    assert res.state.z.device == torch.device("cpu")
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        fit(corpus, cfg, 1, mesh=object(), device="cpu")
+
+
+def test_launch_train_defaults_to_cuda(monkeypatch, tmp_path):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    flags = ["--iters", "1", "--topics", "4", "--scale", "0.0001",
+             "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(flags)
+    assert train.main(flags + ["--device", "cpu"]) == 0
+
+
+def test_training_kernels_refuse_cpu_tensors():
+    """No CPU fallback inside a kernel wrapper: CPU tensors go to the plain
+    versions through ops.py, never through the wrappers."""
+    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.phi_update import kernel as k24
+
+    z = torch.zeros((2, 4), dtype=torch.int16)
+    m = torch.ones((2, 4), dtype=torch.bool)
+    tw = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k24.phi_update_tiles(tw, z, m, 3, 4)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k24.phi_delta_tiles(tw, z, z, m, 3, 4)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        k1.lda_sample_tiles(tw, tw[:, None].expand(2, 4).contiguous(), m, z,
+                            torch.zeros((3, 4), dtype=torch.int32),
+                            torch.zeros(4, dtype=torch.int32),
+                            torch.zeros((1, 4), dtype=torch.int32),
+                            torch.zeros((1, 4), dtype=torch.int32),
+                            torch.zeros((2, 4, 2)), alpha=0.1, beta=0.01,
+                            num_words_total=3)

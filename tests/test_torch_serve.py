@@ -414,20 +414,38 @@ def test_http_infer_stats_and_oov_400(snap):
         engine.stop()
 
 
-def test_bench_plants_serves_and_hot_swaps(tmp_path, capsys):
+def test_bench_plants_serves_and_hot_swaps(tmp_path):
+    """The planted helpers as the full-width serving check drives them: a
+    planted snapshot round-trips to disk, the engine recovers its major
+    topics, and a second planted model (seed + 1) is hot-swapped in."""
     from repro_torch.launch import serve_lda
+    from repro_torch.serve import save_snapshot
 
+    V, K, avg_len = 600, 32, 40
     path = str(tmp_path / "planted.npz")
-    rc = serve_lda.main(["--snapshot", path, "--bench", "--device", "cpu",
-                         "--vocab", "600", "--topics", "32",
-                         "--bench-docs", "16", "--burn-in", "4",
-                         "--samples", "2", "--max-batch", "8"])
-    assert rc == 0
-    out = capsys.readouterr().out
-    assert "hot-swapped to model_version=2" in out
-    recovered = float(out.split("recovered on ")[1].split()[0])
-    assert recovered >= 0.8
-    assert load_snapshot(path, device="cpu").meta["planted_seed"] == 0
+    save_snapshot(path, serve_lda.planted_snapshot(V, K, 0, device="cpu"))
+    snap = load_snapshot(path, device="cpu")
+    assert snap.meta["planted_seed"] == 0
+    args = serve_lda.build_argparser().parse_args(
+        ["--snapshot", path, "--device", "cpu", "--burn-in", "4",
+         "--samples", "2", "--max-batch", "8", "--no-trace"])
+    model, engine = serve_lda.make_engine(args, snap)
+    try:
+        recovered = []
+        for seed in (0, 1):
+            if seed:
+                assert model.publish(serve_lda.planted_snapshot(
+                    V, K, seed, device="cpu")) == 2
+            _, home = serve_lda.planted_model(V, K, seed)
+            docs, majors = serve_lda.planted_docs(home, K, 16, avg_len,
+                                                  seed + 1)
+            out = engine.infer_many(docs)
+            assert all(r["model_version"] == seed + 1 for r in out)
+            recovered.append(np.mean([int(r["theta"].argmax()) == m
+                                      for r, m in zip(out, majors)]))
+    finally:
+        engine.stop()
+    assert min(recovered) >= 0.8, recovered
 
 
 def test_planted_model_has_known_homes():
