@@ -27,22 +27,31 @@ L in {32, 64, 128, 256}; 8 burn-in + 4 sample sweeps):
 Training (``configs/lda_nytimes.CONFIG`` on ``nytimes_like(1.0)``:
 D = 299,752 docs, V = 101,636, ~99.5M tokens, Zipf 1.1):
 
-7. host preparation: corpus, tiling, move to the card;
+7. host preparation: corpus, tiling, move to the card; the ELL's element
+   type (int16 where K and the longest document allow, C7);
 8. the sweep kernel (K1) against its plain version: one sweep from the
    initial state and the same uniforms on the heaviest word's first 1024
-   tiles and the last 1024 (tail) tiles, at full K and V;
+   tiles and the last 1024 (tail) tiles, at full K and V, on the ELL the
+   trainer builds (``trainer.theta_and_ell``);
 9. the count kernels (K2 phi delta, K4 phi rebuild) against their plain
    versions at full V x K, after one full-width K1 sweep;
 10. K1, K2 and K4 times at full width (CUDA events, median of 20; the
     plain K1 median of 3), each with its bound and, for K2 and K4, one
-    ``index_add_`` as the library yardstick;
+    ``index_add_`` as the library yardstick; K1 also with the bytes its
+    design moves (``k1_design``: runs, mean run length, design bytes and
+    the rate they were moved at);
 11. the training main path: ``fit(corpus, CONFIG, 10)`` on cuda:0 with
     eval every iteration, then K4 rebuilds phi from the final z; the K1,
     K2 and K4 counters are read around both;
 12. K1 against its plain version again, on the trained state (the same
     tiles as in 8);
 13. where an iteration's time goes: each step of ``lda_iteration`` timed
-    alone on the final state (CUDA events, median of 5).
+    alone on the final state (CUDA events, median of 5), with K1's design
+    bytes on that state;
+14. ``torch.profiler`` over two steady ``lda_iteration`` calls on the final
+    state: the device-busy share of the window and the ten kernels with the
+    most device time (or ``device_time_visible: false`` when the trace
+    holds no device time).
 
 Bounds (fault F2: the kernels' prefix sums are float32 adds in another
 order than torch.cumsum's, so a draw on a float boundary may flip):
@@ -163,13 +172,39 @@ def time_ms(fn, n=20, warm=3):
     return times[len(times) // 2]
 
 
+def slot_bytes(z) -> int:
+    """K1's bytes per slot: token_doc, mask, z_old, the two uniforms read;
+    z_new, the sparse flag and S/(S+Q) written."""
+    return 4 + 1 + 2 * z.element_size() + 8 + 1 + 4
+
+
+def run_starts(token_doc, mask):
+    """(n, t) bool: the slots that start a run — a maximal stretch of a
+    tile's real slots with one doc, whose tokens share S and the p1 prefix
+    under delayed counts (K1 computes them once per run)."""
+    first = mask.clone()
+    first[:, 1:] &= ~(mask[:, :-1] & (token_doc[:, 1:] == token_doc[:, :-1]))
+    return first
+
+
+def search_steps(n):
+    """Compares of a binary search for a count among n sorted prefixes."""
+    import torch
+
+    n = torch.as_tensor(n, dtype=torch.float64)
+    return torch.ceil(torch.log2(n + 1))
+
+
 def k1_bytes_and_ops(args, sparse, nb, bw):
     """The least work of one sweep (K1): each input read once, each output
     written once — of phi only the rows of the tiles' words, of the ELL only
-    each present doc's live (non-zero) entries; float operations: 4 per
-    tile and topic (p* and its prefix sums) and, per real token, 2 per live
-    ELL entry (S) + 2 (the side) + the search's compares (the live entries
-    for a sparse draw, nb + bw for a dense one)."""
+    each present doc's live (non-zero) entries, counts and topics at the
+    ELL's element size, and its live length; float operations: 4 per word
+    and topic (p* and its prefix sums), 2 per live ELL entry once per run
+    (S and the p1 prefix, shared by the run's tokens), and per real token
+    2 for the side and a binary search's compares (over the live entries
+    for a sparse draw, over nb block sums then bw in-block sums for a
+    dense one)."""
     import torch
 
     (tile_word, token_doc, mask, z, phi, phi_sum, cnt, tpc, uni) = args
@@ -178,14 +213,53 @@ def k1_bytes_and_ops(args, sparse, nb, bw):
     live = (cnt > 0).sum(1)                                  # (D,)
     docs = torch.zeros_like(live, dtype=torch.bool)
     docs[token_doc[mask].long()] = True
-    tok_live = live[token_doc.long()][mask].to(torch.int64)
+    first = run_starts(token_doc, mask)
+    run_live = live[token_doc[first].long()].to(torch.int64)
+    tok_live = live[token_doc[mask].long()]
     sp = sparse[mask]
-    nbytes = (n * 4 + n * t * (4 + 1 + 2 * z.element_size() + 8 + 1 + 4)
-              + int(torch.unique(tile_word).numel()) * K * 4 + K * 4
-              + int(live[docs].sum()) * 8)
-    ops = (4 * K * n + int((2 * tok_live + 2).sum())
-           + int(tok_live[sp].sum()) + int((~sp).sum()) * (nb + bw))
+    words = int(torch.unique(tile_word).numel())
+    nbytes = (n * 4 + n * t * slot_bytes(z) + words * K * 4 + K * 4
+              + int(live[docs].sum()) * 2 * cnt.element_size()
+              + int(docs.sum()) * 4)
+    ops = (4 * K * words + 2 * int(run_live.sum()) + 2 * int(mask.sum())
+           + int(search_steps(tok_live[sp]).sum())
+           + int((~sp).sum()) * int(search_steps(nb) + search_steps(bw)))
     return nbytes, ops
+
+
+def k1_design(args, ms, tiles_per_cta):
+    """The bytes K1's design moves in one sweep, and the rate it moved them
+    at in ``ms``: per run (``run_starts``) the doc's live ELL entries,
+    counts and topics at the ELL's element size, and its live length; per
+    slot what ``slot_bytes`` counts; per tile its word; a phi row (K int32)
+    at each tile that starts a CTA's group of ``tiles_per_cta`` or changes
+    the word within it.  Beside it the bytes of one warp per token reading
+    its doc's row as int32 (8 B an entry) up to the 32-entry chunk that
+    holds the row's first zero and a phi row per tile, the design this
+    kernel replaced, by the same count."""
+    import torch
+
+    (tile_word, token_doc, mask, z, phi, phi_sum, cnt, tpc, uni) = args
+    n, t = z.shape
+    K, P = phi.shape[1], cnt.shape[1]
+    live = (cnt > 0).sum(1).to(torch.int64)                  # (D,)
+    first = run_starts(token_doc, mask)
+    runs, real = int(first.sum()), int(mask.sum())
+    run_live = int(live[token_doc[first].long()].sum())
+    tok_live = live[token_doc[mask].long()]
+    per_token = int(torch.clamp((tok_live // 32 + 1) * 32, max=P).sum())
+    new_row = torch.ones_like(tile_word, dtype=torch.bool)
+    new_row[1:] = tile_word[1:] != tile_word[:-1]
+    new_row[::tiles_per_cta] = True
+    phi_rows = int(new_row.sum())
+    common = n * t * slot_bytes(z) + n * 4 + K * 4
+    design = (run_live * 2 * cnt.element_size() + runs * 4 + common
+              + phi_rows * K * 4)
+    return dict(runs=runs, mean_run_tokens=real / max(runs, 1),
+                mean_run_live=run_live / max(runs, 1),
+                ell_dtype=str(cnt.dtype), phi_rows=phi_rows,
+                design_bytes=design, design_gb_per_s=design / ms / 1e6,
+                per_token_int32_bytes=per_token * 8 + common + n * K * 4)
 
 
 def count_bytes_and_ops(n, t, z_bytes, V, K, real, delta: bool):
@@ -210,7 +284,7 @@ def k1_vs_plain(full, kw, state: str) -> float:
     and returns the largest S/(S+Q) error where the draws agree."""
     import torch
 
-    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.lda_sample import ops as k1_ops
     from repro_torch.kernels.lda_sample import ref as k1_ref
 
     n = full[0].shape[0]
@@ -219,7 +293,7 @@ def k1_vs_plain(full, kw, state: str) -> float:
            torch.cat([torch.arange(CMP_TILES, device=dev),
                       torch.arange(n - CMP_TILES, n, device=dev)]))
     sl = tuple(a[idx].contiguous() if a.shape[0] == n else a for a in full)
-    zk, spk, ssqk = k1.lda_sample_tiles(*sl, **kw)
+    zk, spk, ssqk = k1_ops.launch_kernel(sl, **kw)
     zr, spr, ssqr = k1_ref.lda_sample_tiles_ref(*sl, **kw)
     torch.cuda.synchronize()
     m = sl[2]
@@ -244,9 +318,60 @@ def k1_vs_plain(full, kw, state: str) -> float:
     return err
 
 
+def profile_iterations(cfg, shard, state, iters: int) -> dict:
+    """``torch.profiler`` (CPU and CUDA) over ``iters`` steady
+    ``lda_iteration`` calls from ``state``, after one untraced warm-up.
+    Returns the window's host wall time, the device-busy time (the union of
+    the device events' intervals) and its share of the window, and the ten
+    kernels with the most device time; ``device_time_visible`` is false
+    when ``key_averages()`` holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import trainer
+
+    trainer.lda_iteration(cfg, shard, state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = state
+        for _ in range(iters):
+            st, _ = trainer.lda_iteration(cfg, shard, st)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    visible = sum(e.self_device_time_total for e in prof.key_averages()) > 0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    if not (visible and dev):
+        return dict(iterations=iters, window_ms=wall_ms,
+                    device_time_visible=False)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:                      # union of the device intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name: dict[str, list] = {}
+    for e in dev:
+        ent = by_name.setdefault(e.name, [0, 0.0])
+        ent[0] += 1
+        ent[1] += e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    span_us = spans[-1][1] - spans[0][0]
+    return dict(iterations=iters, window_ms=wall_ms,
+                device_time_visible=True, device_busy_ms=busy_us / 1e3,
+                busy_share=busy_us / 1e3 / wall_ms,
+                device_span_ms=span_us / 1e3,
+                busy_share_of_span=busy_us / span_us,
+                top_kernels=[dict(name=k[:160], count=c, ms=us / 1e3)
+                             for k, (c, us) in top])
+
+
 def train_phases(card: str, scale: float, iters: int,
                  device="cuda:0") -> list[dict]:
-    """Phases 7-13; returns the kernels-line rows of K1, K2 and K4."""
+    """Phases 7-14; returns the kernels-line rows of K1, K2 and K4."""
     import numpy as np
     import torch
 
@@ -256,6 +381,7 @@ def train_phases(card: str, scale: float, iters: int,
     from repro_torch.core.sampler import draw_sweep_uniforms, pick_search_block
     from repro_torch.data.synthetic import nytimes_like
     from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.lda_sample import ops as k1_ops
     from repro_torch.kernels.lda_sample import ref as k1_ref
     from repro_torch.kernels.phi_update import kernel as k24
     from repro_torch.kernels.phi_update import ops as phi_ops
@@ -281,13 +407,14 @@ def train_phases(card: str, scale: float, iters: int,
     nb, bw = K // pick_search_block(K), pick_search_block(K)
     emit("train_prep", scale=scale, docs=corpus.num_docs, V=V, K=K, P=P,
          tiles=n, tile_tokens=t, real_tokens=shard.num_tokens,
-         slots=n * t, corpus_s=t_corpus, tiling_s=t_tile, to_device_s=t_h2d)
+         slots=n * t, max_doc_length=shard.max_doc_length,
+         ell_dtype=str(updates.ell_dtype(K, shard.max_doc_length)),
+         corpus_s=t_corpus, tiling_s=t_tile, to_device_s=t_h2d)
 
     # -- 8. K1 against its plain version on heavy + tail tiles ---------------
     state0 = trainer.init_state(cfg, shard)
-    ell_c, ell_t, _ = updates.theta_to_ell(updates.theta_from_z(
-        state0.z, shard.token_doc, shard.token_mask, shard.num_docs_local, K),
-        P)
+    _, ell_c, ell_t, _ = trainer.theta_and_ell(cfg, shard, state0.z)
+    live0 = k1_ops.live_lengths(ell_c)
     uni = draw_sweep_uniforms(trainer.iteration_generator(cfg, 0, dev), n, t)
     full = (shard.tile_word, shard.token_doc, shard.token_mask, state0.z,
             state0.phi_vk, state0.phi_sum, ell_c, ell_t, uni)
@@ -295,7 +422,7 @@ def train_phases(card: str, scale: float, iters: int,
     k1_err = k1_vs_plain(full, kw, "initial")
 
     # -- 9. K2 and K4 against their plain versions at full V x K -------------
-    z1, sp1, _ = k1.lda_sample_tiles(*full, **kw)
+    z1, sp1, _ = k1.lda_sample_tiles(*full, ell_live=live0, **kw)
     tw, tf, tm = shard.tile_word, shard.tile_first, shard.token_mask
     dk = k24.phi_delta_tiles(tw, z1, state0.z, tm, V, K)
     dr = k24_ref.phi_delta_tiles_ref(tw, tf, z1, state0.z, tm, V, K)
@@ -328,7 +455,7 @@ def train_phases(card: str, scale: float, iters: int,
 
     timing = {}
     timing["k1"] = dict(
-        ms=time_ms(lambda: k1.lda_sample_tiles(*full, **kw)),
+        ms=time_ms(lambda: k1.lda_sample_tiles(*full, ell_live=live0, **kw)),
         plain_ms=time_ms(lambda: k1_ref.lda_sample_tiles_ref(
             *full, tiles_per_step=512, **kw), n=3, warm=1),
         **bound(*k1_bytes_and_ops(full, sp1, nb, bw), FP32_FLOPS))
@@ -347,9 +474,11 @@ def train_phases(card: str, scale: float, iters: int,
         library_ms=time_ms(lambda: library(new_flat, ones)),
         **bound(*count_bytes_and_ops(n, t, z1.element_size(), V, K, real_tok,
                                      False), INT32_OPS))
-    emit("train_timing", card=card, state="initial", **timing)
+    group = k1.tiles_per_cta()
+    emit("train_timing", card=card, state="initial", **timing,
+         k1_design=k1_design(full, timing["k1"]["ms"], group))
     del words, new_flat, old_flat, ones, idx2, val2, z1, sp1, uni, full
-    del state0, ell_c, ell_t
+    del state0, ell_c, ell_t, live0
     torch.cuda.empty_cache()
 
     # -- 11. the training main path ------------------------------------------
@@ -391,23 +520,23 @@ def train_phases(card: str, scale: float, iters: int,
         raise AssertionError("a topic assignment is outside [0, K)")
 
     # -- 12. K1 against its plain version on the trained state ---------------
-    theta = updates.theta_from_z(st.z, shard.token_doc, tm,
-                                 shard.num_docs_local, K)
-    c, tp, _ = updates.theta_to_ell(theta, P)
+    theta, c, tp, _ = trainer.theta_and_ell(cfg, shard, st.z)
+    live = k1_ops.live_lengths(c)
     gen = trainer.iteration_generator(cfg, st.iteration, dev)
     u = draw_sweep_uniforms(gen, n, t)
     fin = (tw, shard.token_doc, tm, st.z, st.phi_vk, st.phi_sum, c, tp, u)
     k1_err = max(k1_err, k1_vs_plain(fin, kw, "trained"))
 
     # -- 13. where an iteration's time goes (final state) ---------------------
-    z2, sp2, _ = k1.lda_sample_tiles(*fin, **kw)
+    z2, sp2, _ = k1.lda_sample_tiles(*fin, ell_live=live, **kw)
     d2 = k24.phi_delta_tiles(tw, z2, st.z, tm, V, K)
     steps = dict(
         theta_from_z=lambda: updates.theta_from_z(
             st.z, shard.token_doc, tm, shard.num_docs_local, K),
-        theta_to_ell=lambda: updates.theta_to_ell(theta, P),
+        theta_to_ell=lambda: updates.theta_to_ell(theta, P, c.dtype),
         draw_uniforms=lambda: draw_sweep_uniforms(gen, n, t),
-        k1_sweep=lambda: k1.lda_sample_tiles(*fin, **kw),
+        live_lengths=lambda: k1_ops.live_lengths(c),
+        k1_sweep=lambda: k1.lda_sample_tiles(*fin, ell_live=live, **kw),
         k2_phi_delta=lambda: k24.phi_delta_tiles(tw, z2, st.z, tm, V, K),
         phi_advance=lambda: updates.phi_totals(st.phi_vk + d2),
         log_likelihood=lambda: trainer.log_likelihood(cfg, shard, st))
@@ -416,7 +545,12 @@ def train_phases(card: str, scale: float, iters: int,
     emit("train_breakdown", card=card, iteration=st.iteration, ms=ms,
          iteration_ms=sum(v for k, v in ms.items() if k != "log_likelihood"),
          k1_final_bound=k1_final,
+         k1_design=k1_design(fin, ms["k1_sweep"], group),
          sparse_share=float(sp2[tm].float().mean()))
+    del z2, sp2, d2, fin, u, theta, c, tp, live
+
+    # -- 14. a profiler trace of two steady iterations -----------------------
+    emit("train_profile", card=card, **profile_iterations(cfg, shard, st, 2))
 
     def row(name, src, replaces, key, err, launched):
         k = timing[key]

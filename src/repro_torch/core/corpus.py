@@ -122,6 +122,7 @@ class TiledCorpusShard:
     num_tokens: int
     num_words: int          # local phi rows
     num_docs_local: int
+    max_doc_length: int     # the longest local doc, known on the host
     num_words_total: int = 0  # global vocabulary size (Eq. 1's V)
 
     _TENSORS = ("tile_word", "token_doc", "token_mask", "tile_first",
@@ -225,6 +226,7 @@ def tile_shard(
         num_tokens=int(T),
         num_words=corpus.num_words,
         num_docs_local=int(len(doc_global)),
+        max_doc_length=int(doc_length.max(initial=0)),
         num_words_total=(corpus.num_words if num_words_total is None
                          else num_words_total),
     )

@@ -152,12 +152,16 @@ def state_from_numpy(cfg: LDAConfig, shard: TiledCorpusShard, z,
     return state
 
 
-def _build_theta_ell(cfg: LDAConfig, shard: TiledCorpusShard, z):
+def theta_and_ell(cfg: LDAConfig, shard: TiledCorpusShard, z):
+    """Step 1 of an iteration: theta from z and its ELL slice, in int16 when
+    K and the longest document allow (C7, ``updates.ell_dtype``).  Returns
+    (theta, counts, topics, overflowed)."""
     K = cfg.num_topics
     theta = updates.theta_from_z(z, shard.token_doc, shard.token_mask,
                                  shard.num_docs_local, K)
-    P = cfg.ell_capacity or min(K, int(shard.doc_length.max()))
-    counts, topics, overflow = updates.theta_to_ell(theta, min(P, K))
+    P = cfg.ell_capacity or min(K, shard.max_doc_length)
+    counts, topics, overflow = updates.theta_to_ell(
+        theta, min(P, K), updates.ell_dtype(K, shard.max_doc_length))
     return theta, counts, topics, overflow
 
 
@@ -192,7 +196,7 @@ def lda_iteration(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
                     if cfg.sampler == "sq"
                     else dense_sampler.draw_dense_uniforms(gen, n + n_pad, t))
 
-    theta, ell_c, ell_t, overflow = _build_theta_ell(cfg, shard, state.z)
+    theta, ell_c, ell_t, overflow = theta_and_ell(cfg, shard, state.z)
     v_total = shard.num_words_total or shard.num_words
     kw = dict(alpha=alpha, beta=beta, num_words_total=v_total)
 
@@ -222,7 +226,7 @@ def lda_iteration(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
         z_parts, sfs, ssqs = [], [], []
         for m in range(M):
             sl = slice(m * nc, (m + 1) * nc)
-            cnts, tpcs = updates.ell_topk(theta_c, P)
+            cnts, tpcs = updates.ell_topk(theta_c, P, ell_c.dtype)
             z_c, st = sweep(tw_a[sl], td_a[sl], tm_a[sl], z_a[sl],
                             uniforms[sl], theta_c, cnts, tpcs,
                             min(cfg.tiles_per_step, nc))

@@ -67,8 +67,20 @@ def theta_delta(z_old: torch.Tensor, z_new: torch.Tensor,
                            out=d).view(num_docs, num_topics)
 
 
-def ell_topk(theta: torch.Tensor, capacity: int):
-    """Dense counts (..., K) -> ELL ``(counts, topics)`` (..., P), int32.
+INT16_MAX = 32767
+
+
+def ell_dtype(num_topics: int, max_doc_length: int) -> torch.dtype:
+    """C7 for the ELL: int16 counts and topics when K and the longest
+    document (the largest count) fit, else int32."""
+    fits = num_topics <= INT16_MAX and max_doc_length <= INT16_MAX
+    return torch.int16 if fits else torch.int32
+
+
+def ell_topk(theta: torch.Tensor, capacity: int, dtype=torch.int32):
+    """Dense counts (..., K) -> ELL ``(counts, topics)`` (..., P) of
+    ``dtype`` (int32 unless asked; the cast is the one pass that writes
+    them).
 
     The order of ``jax.lax.top_k``: count descending, ties to the lower
     topic id, zero counts last in id order — a *stable* sort on -count.
@@ -77,17 +89,17 @@ def ell_topk(theta: torch.Tensor, capacity: int):
     order = torch.sort(-theta.to(torch.int64), dim=-1, stable=True).indices
     topics = order[..., :capacity]
     counts = torch.gather(theta, -1, topics)
-    return counts.to(torch.int32), topics.to(torch.int32)
+    return counts.to(dtype), topics.to(dtype)
 
 
-def theta_to_ell(theta: torch.Tensor, capacity: int):
-    """Dense theta -> ELL: (counts (D, P) int32, topics (D, P) int32,
+def theta_to_ell(theta: torch.Tensor, capacity: int, dtype=torch.int32):
+    """Dense theta -> ELL: (counts (D, P), topics (D, P), both of ``dtype``,
     overflowed (D,) bool).
 
     Rows with more than ``capacity`` non-zeros are flagged; callers either
     guarantee capacity >= max K_d (exact mode) or route flagged docs to the
     dense sampler.  Padding entries have count 0 and add 0 to p1."""
-    counts, topics = ell_topk(theta, capacity)
+    counts, topics = ell_topk(theta, capacity, dtype)
     nnz = (theta > 0).sum(dim=-1)
     return counts, topics, nnz > capacity
 

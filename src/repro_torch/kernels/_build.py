@@ -3,7 +3,8 @@ ctypes, and check the tensors handed to them.
 
 Each ``csrc/*.cu`` source has a plain C interface and compiles on its own
 into ``build/kernels/<name>-<hash>.so`` under the repository root (the hash
-is of the source, so an edited kernel rebuilds).  Nothing is built when a
+is of the source and of any ``-D`` defines, so an edited kernel rebuilds and
+a build variant gets a library of its own).  Nothing is built when a
 module is imported: the CPU tests import every module and this machine may
 have no ``nvcc``.
 """
@@ -27,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def source_path(name: str) -> Path:
@@ -46,17 +47,20 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(source_path(name).read_bytes())
+    for d in defines:
+        h.update(b"\0" + d.encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> tuple[Path, str]:
+def build(name: str, defines: tuple[str, ...] = ()) -> tuple[Path, str]:
     """Compile one kernel source unless its library exists; returns
-    ``(library path, nvcc's output)``.  Written to a temporary file and
-    renamed, so a concurrent or interrupted build never leaves a partial
-    library behind."""
-    out = library_path(name)
+    ``(library path, nvcc's output)``.  ``defines`` (``NAME=VALUE``) go to
+    nvcc as ``-D``.  Written to a temporary file and renamed, so a
+    concurrent or interrupted build never leaves a partial library
+    behind."""
+    out = library_path(name, defines)
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -64,7 +68,8 @@ def build(name: str) -> tuple[Path, str]:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source_path(name))],
+            [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+             str(source_path(name))],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}"
@@ -85,14 +90,15 @@ def build_all(names) -> dict[str, str]:
     return {n: log for n, (_, log) in zip(names, results)}
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The kernel's shared library, built on first use."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            path, _ = build(name)
+            path, _ = build(name, key[1])
             lib = ctypes.CDLL(str(path))
-            _loaded[name] = lib
+            _loaded[key] = lib
         return lib
 
 

@@ -4,15 +4,20 @@
 Replaces ``repro/kernels/lda_sample/kernel.py::lda_sample_tiles`` (K1, the
 Pallas TPU kernel): one delayed-count S/Q sweep over word tiles.  The TPU
 kernel stages a chunk's (C, K) phi table, which does not fit a block's
-shared memory at NYTimes width; here one CTA takes one tile (the paper's
-layout) with its word's p* and search sums in shared memory, and one warp
-per token reads the token's document ELL row from device memory.  The
-kernel reads no chunk plan, so ``build_chunk_plan``/``build_sweep_plans``
-of the JAX package have no counterpart here.
+shared memory at NYTimes width; here a CTA takes a few consecutive tiles in
+turn (the paper's layout, one tile at a time) with the word's p* and search
+sums in shared memory, and one warp per run of a tile's slots with one
+document reads that document's live ELL entries once and draws every token
+of the run.  The group of tiles a CTA takes is fixed when the source is
+built (``tiles_per_cta``).  The kernel reads no chunk
+plan, so ``build_chunk_plan``/``build_sweep_plans`` of the JAX package have
+no counterpart here.
 
-What bounds it: bytes — every token reads its document's live ELL entries
-from device memory (the (D, P) ELL is far larger than L2), besides the
-uniforms and the per-token inputs and outputs; see the source note.
+What bounds it: its least work by bytes — each run reads its document's
+live ELL entries (counts and topics, int16 or int32) from device memory
+(the (D, P) ELL is far larger than L2), besides the uniforms and the
+per-token inputs and outputs; its time by the per-run scan and draws, with
+the row loads mostly hidden behind them (see the source note).
 
 Built with ``nvcc`` for ``sm_90a`` at first launch (``kernels/_build.py``)
 and bound with ctypes.  The wrapper refuses CPU tensors: ``ops.py`` sends
@@ -29,23 +34,33 @@ from repro_torch.kernels import _build
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 Z_DTYPES = (torch.int16, torch.int32)
-THREADS = 256                    # csrc/lda_sample.cu kThreads
+ELL_DTYPES = (torch.int16, torch.int32)   # counts and topics, one of them
 MAX_SMEM_BYTES = 232_448         # a Hopper block's shared-memory limit
 
 
-def smem_bytes(t: int, K: int, P: int) -> int:
-    """Dynamic shared memory of one CTA (``lda_sample_smem_bytes``)."""
-    return 4 * (2 * K + K // pick_search_block(K) + (THREADS // 32) * P
-                + 2 * t) + 4 * 2 * t
-
-
-def _lib():
-    lib = _build.load("lda_sample")
+def _lib(defines: tuple[str, ...] = ()):
+    """The built library; ``defines`` (``NAME=VALUE``) select a build
+    variant of the source, which only ``k1_probe.py`` asks for."""
+    lib = _build.load("lda_sample", defines)
     fn = lib.lda_sample_tiles_launch
     if fn.argtypes is None:   # pointers and the stream as c_void_p, not int
-        fn.argtypes = [_vp] * 12 + [_i] * 6 + [_f, _f, _i, _vp]
+        fn.argtypes = [_vp] * 13 + [_i] * 7 + [_f, _f, _i, _vp]
         fn.restype = _i
+        lib.lda_sample_smem_bytes.argtypes = [_i] * 5
+        lib.lda_sample_smem_bytes.restype = ctypes.c_size_t
+        lib.lda_sample_tiles_per_cta.restype = _i
     return lib
+
+
+def tiles_per_cta() -> int:
+    """Consecutive tiles a CTA takes in turn, as the kernel was built."""
+    return int(_lib().lda_sample_tiles_per_cta())
+
+
+def smem_bytes(t: int, K: int, P: int, ell_bytes: int) -> int:
+    """Dynamic shared memory of one CTA, as the built kernel lays it out."""
+    return int(_lib().lda_sample_smem_bytes(t, K, P, pick_search_block(K),
+                                            ell_bytes))
 
 
 def lda_sample_tiles(
@@ -55,18 +70,34 @@ def lda_sample_tiles(
     z_old,         # (n, t) int16 or int32
     phi_vk,        # (V, K) int32
     phi_sum,       # (K,) int32
-    ell_counts,    # (D, P) int32 — per-doc ELL, zero counts last
-    ell_topics,    # (D, P) int32
+    ell_counts,    # (D, P) int16 or int32 — per-doc ELL, zero counts last
+    ell_topics,    # (D, P) of ell_counts' dtype
     uniforms,      # (n, t, 2) float32
     *,
+    ell_live,      # (D,) int32 — live (non-zero) entries of each ELL row
     alpha: float,
     beta: float,
     num_words_total: int,
 ):
     """Launch one sweep on the current stream; does not synchronise.
 
-    Returns (z_new (n, t) like z_old, sparse (n, t) bool, ssq (n, t)
-    float32 — S/(S+Q) per token, 0 on padding)."""
+    ``ell_live`` must be each row's number of non-zero counts
+    (``ops.live_lengths``): the kernel reads no entry past it.  Returns
+    (z_new (n, t) like z_old, sparse (n, t) bool, ssq (n, t) float32 —
+    S/(S+Q) per token, 0 on padding)."""
+    out = sweep_variant((), tile_word, token_doc, token_mask, z_old, phi_vk,
+                        phi_sum, ell_counts, ell_topics, uniforms,
+                        ell_live=ell_live, alpha=alpha, beta=beta,
+                        num_words_total=num_words_total)
+    lda_sample_tiles.launches += 1
+    return out
+
+
+def sweep_variant(defines, tile_word, token_doc, token_mask, z_old, phi_vk,
+                  phi_sum, ell_counts, ell_topics, uniforms, *, ell_live,
+                  alpha, beta, num_words_total):
+    """``lda_sample_tiles`` through the build of the source with
+    ``defines`` (``()``: the shipped one), without counting the launch."""
     dev = _build.require_cuda(z_old, "lda_sample_tiles",
                               "ref.lda_sample_tiles_ref")
     n, t = z_old.shape
@@ -79,12 +110,13 @@ def lda_sample_tiles(
     chk("z_old", z_old, Z_DTYPES, (n, t), dev)
     chk("phi_vk", phi_vk, torch.int32, (V, K), dev)
     chk("phi_sum", phi_sum, torch.int32, (K,), dev)
-    chk("ell_counts", ell_counts, torch.int32, (D, P), dev)
-    chk("ell_topics", ell_topics, torch.int32, (D, P), dev)
+    chk("ell_counts", ell_counts, ELL_DTYPES, (D, P), dev)
+    chk("ell_topics", ell_topics, ell_counts.dtype, (D, P), dev)
+    chk("ell_live", ell_live, torch.int32, (D,), dev)
     chk("uniforms", uniforms, torch.float32, (n, t, 2), dev)
     if not 1 <= P <= K:
         raise ValueError(f"ELL width {P} must be in [1, K={K}]")
-    smem = smem_bytes(t, K, P)
+    smem = smem_bytes(t, K, P, ell_counts.element_size())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"tile {t} x K {K} x P {P} needs {smem} bytes of "
                          f"shared memory, over {MAX_SMEM_BYTES}")
@@ -92,17 +124,17 @@ def lda_sample_tiles(
     sparse = torch.empty((n, t), dtype=torch.bool, device=dev)
     ssq = torch.empty((n, t), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib().lda_sample_tiles_launch(
+        err = _lib(defines).lda_sample_tiles_launch(
             tile_word.data_ptr(), token_doc.data_ptr(), token_mask.data_ptr(),
             z_old.data_ptr(), phi_vk.data_ptr(), phi_sum.data_ptr(),
-            ell_counts.data_ptr(), ell_topics.data_ptr(), uniforms.data_ptr(),
-            z_new.data_ptr(), sparse.data_ptr(), ssq.data_ptr(),
-            n, t, K, P, pick_search_block(K), z_old.element_size(),
-            float(alpha), float(beta), int(num_words_total),
-            _build.current_stream(dev))
+            ell_counts.data_ptr(), ell_topics.data_ptr(), ell_live.data_ptr(),
+            uniforms.data_ptr(), z_new.data_ptr(), sparse.data_ptr(),
+            ssq.data_ptr(), n, t, K, P, pick_search_block(K),
+            z_old.element_size(), ell_counts.element_size(),
+            float(alpha), float(beta),
+            int(num_words_total), _build.current_stream(dev))
     if err != 0:
         raise RuntimeError(f"lda_sample_tiles launch failed: CUDA error {err}")
-    lda_sample_tiles.launches += 1
     return z_new, sparse, ssq
 
 

@@ -108,22 +108,40 @@ def test_engine_serves_through_kernel(dev):
 # ---------------------------------------------------------------------------
 # training kernels: K1 (lda_sample), K2 (phi_delta), K4 (phi_update)
 # ---------------------------------------------------------------------------
-def sweep_case(K, dev, n=48, t=64, V=40, D=30, seed=0, z_dtype=torch.int16):
+def sweep_case(K, dev, n=48, t=64, V=40, D=30, seed=0, z_dtype=torch.int16,
+               ell_dtype=torch.int32, docs="random", P=None, full_rows=False):
     """Word tiles over a random corpus slice, a random phi and the ELL of a
-    random theta (zero counts last, as theta_to_ell gives)."""
+    random theta (zero counts last, as theta_to_ell gives).
+
+    ``docs="random"``: each slot a random document (runs of about one
+    slot); ``"runs"``: the slots in runs of one document of 1 to 2t + 9
+    slots (whole tiles, and runs that cross a tile boundary), as a word's
+    doc-sorted tokens are.  ``full_rows``: a third of the documents use
+    every topic, so their rows have no zero (live = P).  ``P`` defaults to
+    min(K, 64)."""
     from repro_torch.core import updates
 
     rng = np.random.default_rng(seed)
     tile_word = np.sort(rng.integers(0, V, n)).astype(np.int32)
-    token_doc = rng.integers(0, D, (n, t)).astype(np.int32)
+    if docs == "random":
+        token_doc = rng.integers(0, D, (n, t))
+    else:
+        lengths = rng.choice([1, 2, 3, 5, 17, t, 2 * t + 9], size=n * t)
+        flat = np.repeat(np.arange(n * t) % D, lengths)[:n * t]
+        token_doc = flat.reshape(n, t)
+    token_doc = token_doc.astype(np.int32)
     lens = rng.integers(0, t + 1, n)
+    lens[:n // 4] = t                                 # some full tiles
     mask = np.arange(t)[None] < lens[:, None]
     z = rng.integers(0, K, (n, t))
     phi = rng.integers(0, 50, (V, K)).astype(np.int32)
     theta = ((rng.random((D, K)) < 0.05) * rng.integers(1, 9, (D, K)))
     theta[np.arange(D), rng.integers(0, K, D)] += 1
-    P = min(K, 64)
-    cnt, tpc = updates.ell_topk(torch.from_numpy(theta.astype(np.int32)), P)
+    if full_rows:
+        theta[::3] = rng.integers(1, 9, (len(theta[::3]), K))
+    P = min(K, 64) if P is None else P
+    cnt, tpc = updates.ell_topk(torch.from_numpy(theta.astype(np.int32)), P,
+                                ell_dtype)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
     args = (T(tile_word), T(token_doc), T(mask), T(z).to(z_dtype), T(phi),
             T(phi.sum(0).astype(np.int32)), cnt.to(dev), tpc.to(dev),
@@ -131,28 +149,117 @@ def sweep_case(K, dev, n=48, t=64, V=40, D=30, seed=0, z_dtype=torch.int16):
     return args, dict(alpha=50.0 / K, beta=0.01, num_words_total=V)
 
 
-@pytest.mark.parametrize("K", [96, 256, 1024])
-def test_lda_sample_kernel_matches_plain_version(dev, K):
-    """Draws agree up to float-order boundary flips (fault F2): at most 1%
-    of real tokens here (0 expected at K <= 256); padding slots keep z_old
-    and report 0; S/(S+Q) agrees to 1e-5 where the draws agree."""
-    from repro_torch.kernels.lda_sample import kernel as k1, ref as k1_ref
+def check_sweep(args, kw, K):
+    """K1 against its plain version on the same inputs: draws agree up to
+    float-order boundary flips (fault F2), at most 1% of real tokens (0 at
+    K <= 256); padding slots keep z_old and report 0; S/(S+Q), which does
+    not depend on the draw, agrees to 1e-5 on every real slot."""
+    from repro_torch.kernels.lda_sample import kernel as k1, ops as k1_ops
+    from repro_torch.kernels.lda_sample import ref as k1_ref
 
-    args, kw = sweep_case(K, dev, seed=K)
     before = k1.lda_sample_tiles.launches
-    z, sp, ssq = k1.lda_sample_tiles(*args, **kw)
+    z, sp, ssq = k1_ops.launch_kernel(args, **kw)
     assert k1.lda_sample_tiles.launches == before + 1
     zr, spr, ssqr = k1_ref.lda_sample_tiles_ref(*args, **kw)
     torch.cuda.synchronize()
     mask = args[2]
     flips = int(((z != zr) & mask).sum())
     assert flips <= 0.01 * int(mask.sum()), flips
+    assert z.dtype == args[3].dtype
     assert torch.equal(z[~mask], args[3][~mask])
     assert not bool(sp[~mask].any()) and float(ssq[~mask].abs().sum()) == 0
     assert bool(((z >= 0) & (z < K)).all())
     torch.testing.assert_close(ssq[mask], ssqr[mask], rtol=1e-5, atol=1e-6)
     if K <= 256:
         assert flips == 0 and torch.equal(sp, spr)
+
+
+@pytest.mark.parametrize("K", [96, 256, 1024])
+def test_lda_sample_kernel_matches_plain_version(dev, K):
+    args, kw = sweep_case(K, dev, seed=K)
+    check_sweep(args, kw, K)
+
+
+# (docs, ELL dtype, z dtype, P, rows with no zero): P = 60 and 300 (int16)
+# and P = 62 (int32) are not multiples of the 16-byte vector and take the
+# element-wise row copy; rows longer than one warp-wide vector load (256
+# int16 or 128 int32 entries) take several (P is capped at K)
+SWEEP_CASES = [
+    ("runs", torch.int16, torch.int16, 512, True),
+    ("runs", torch.int16, torch.int32, 300, True),
+    ("random", torch.int32, torch.int16, 300, True),
+    ("random", torch.int16, torch.int16, 64, False),
+    ("random", torch.int16, torch.int32, 64, True),
+    ("random", torch.int32, torch.int32, 62, False),
+    ("runs", torch.int16, torch.int16, 64, False),
+    ("runs", torch.int16, torch.int32, 64, True),
+    ("runs", torch.int32, torch.int16, 64, True),
+    ("runs", torch.int32, torch.int32, 64, False),
+    ("runs", torch.int16, torch.int16, 60, True),
+    ("runs", torch.int32, torch.int16, 62, False),
+]
+
+
+@pytest.mark.parametrize("K", [256, 1024])
+@pytest.mark.parametrize("docs,ell_dtype,z_dtype,P,full_rows", SWEEP_CASES)
+def test_lda_sample_kernel_runs_and_ell_types(dev, K, docs, ell_dtype,
+                                              z_dtype, P, full_rows):
+    """Runs of one document up to a whole tile and across tile boundaries,
+    runs of one slot, rows with no zero count, a width that is not a
+    multiple of the vector, and each of int16 / int32 ELL and z; 45 tiles,
+    so the kernel's last group of tiles is a short one (the sorted tile
+    words repeat, so groups keep p* across tiles)."""
+    args, kw = sweep_case(K, dev, n=45, seed=K + P, z_dtype=z_dtype,
+                          ell_dtype=ell_dtype, docs=docs, P=min(P, K),
+                          full_rows=full_rows)
+    if full_rows:
+        assert int((args[6] > 0).all(1).sum()) > 0
+    check_sweep(args, kw, K)
+
+
+def test_lda_sample_draw_does_not_depend_on_run_length(dev):
+    """The same tokens (doc, u1, u2) drawn in runs of a whole tile and in
+    runs of one slot get the same bits: long runs search the prefixes by
+    bisection, runs of one or two count them warp-wide, which agree only
+    if the prefixes never decrease.  The word's p* mixes topics with a
+    million counts and topics with none that are heavy elsewhere (p* spans
+    ~1e8) inside every search block, where the in-block scan's lanes
+    would round in different directions."""
+    from repro_torch.core import updates
+    from repro_torch.kernels.lda_sample import ops as k1_ops
+
+    K, n, t, D, P = 1024, 48, 64, 48, 64
+    rng = np.random.default_rng(7)
+    phi = np.zeros((2, K), np.int32)
+    heavy = rng.random(K) < 0.5
+    phi[0, heavy] = rng.integers(1, 1_000_000, int(heavy.sum()))
+    phi[1, ~heavy] = 1_000_000
+    theta = (rng.random((D, K)) < 0.05) * rng.integers(1, 9, (D, K))
+    theta[np.arange(D), rng.integers(0, K, D)] += 1
+    cnt, tpc = updates.ell_topk(torch.from_numpy(theta.astype(np.int32)), P,
+                                torch.int16)
+    docs_a = np.repeat(np.arange(n) % D, t)           # tile i: all doc i
+    uni_a = rng.random((n * t, 2), dtype=np.float32)
+    perm = (np.arange(n * t) % n) * t + np.arange(n * t) // n
+    docs_b, uni_b = docs_a[perm], uni_a[perm]         # neighbours differ
+    assert (docs_b[1:] != docs_b[:-1]).all()
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    kw = dict(alpha=50.0 / K, beta=0.01, num_words_total=2)
+    outs = []
+    for docs, uni in ((docs_a, uni_a), (docs_b, uni_b)):
+        args = (T(np.zeros(n, np.int32)),
+                T(docs.reshape(n, t).astype(np.int32)),
+                T(np.ones((n, t), bool)),
+                T(rng.integers(0, K, (n, t)).astype(np.int16)), T(phi),
+                T(phi.sum(0).astype(np.int32)), cnt.to(dev), tpc.to(dev),
+                T(uni.reshape(n, t, 2)))
+        check_sweep(args, kw, K)
+        outs.append([o.reshape(-1).cpu()
+                     for o in k1_ops.launch_kernel(args, **kw)])
+    sparse = outs[0][1][perm]
+    assert 0 < int(sparse.sum()) < n * t              # both sides drawn
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a[perm], b)
 
 
 @pytest.mark.parametrize("z_dtype", [torch.int16, torch.int32])
@@ -182,10 +289,21 @@ def test_phi_kernels_exact(dev, z_dtype):
 
 
 def test_training_wrappers_reject_bad_inputs(dev):
-    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.lda_sample import kernel as k1, ops as k1_ops
     from repro_torch.kernels.phi_update import kernel as k24
 
     args, kw = sweep_case(96, dev, seed=3)
+    kw = dict(kw, ell_live=k1_ops.live_lengths(args[6]))
+    bad = list(args)
+    bad[7] = args[7].to(torch.int16)             # int32 counts, int16 topics
+    with pytest.raises(ValueError, match="dtype"):
+        k1.lda_sample_tiles(*bad, **kw)
+    bad = list(args)
+    bad[6], bad[7] = args[6].to(torch.int64), args[7].to(torch.int64)
+    with pytest.raises(ValueError, match="dtype"):
+        k1.lda_sample_tiles(*bad, **kw)
+    with pytest.raises(ValueError, match="ell_live"):
+        k1.lda_sample_tiles(*args, **dict(kw, ell_live=kw["ell_live"][1:]))
     bad = list(args)
     bad[4] = args[4].to(torch.int64)
     with pytest.raises(ValueError, match="dtype"):

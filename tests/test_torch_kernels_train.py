@@ -140,6 +140,73 @@ def test_sample_sweep_matches_jax(K):
     if flips == 0:
         assert abs(float(js.sparse_frac) - float(ts.sparse_frac)) < 1e-6
         assert abs(float(js.mean_s_over_sq) - float(ts.mean_s_over_sq)) < 1e-6
+    # the trainer's int16 ELL (C7) gives the same sweep
+    tz16, ts16 = tsampler.sample_sweep(
+        *(T(a[k]) for k in ("phi", "phi_sum", "tile_word", "token_doc",
+                            "token_mask", "z")),
+        T(a["cnts"].astype(np.int16)), T(a["tpcs"].astype(np.int16)),
+        T(a["uniforms"]), tiles_per_step=5, **kw)
+    assert torch.equal(tz, tz16) and torch.equal(ts.sparse_frac,
+                                                 ts16.sparse_frac)
+
+
+@pytest.mark.parametrize("K", [96, 1024])
+def test_plain_k1_same_with_int16_and_int32_ell(K):
+    """The plain K1 reads the ELL in either stored type (C7) and gives
+    identical outputs."""
+    a, kw, _ = sweep_case(K, seed=K + 2)
+    args = port_args(a)
+    narrow = args[:6] + (args[6].to(torch.int16), args[7].to(torch.int16),
+                         args[8])
+    wide = tlda_ref.lda_sample_tiles_ref(*args, tiles_per_step=6, **kw)
+    short = tlda_ref.lda_sample_tiles_ref(*narrow, tiles_per_step=6, **kw)
+    for w, n in zip(wide, short):
+        assert torch.equal(w, n)
+
+
+def test_ops_keep_int16_ell_and_pass_live_lengths(monkeypatch):
+    """``ops.lda_sample`` hands the kernel the ELL as stored (int16 is not
+    widened, not even copied) with each row's live length; other integer
+    types become int32.  The kernel is replaced by a recorder (no card
+    here)."""
+    from repro_torch.kernels.lda_sample import kernel as k1
+
+    a, kw, _ = sweep_case(64, seed=6)
+    args = port_args(a)
+    cnt16, tpc16 = args[6].to(torch.int16), args[7].to(torch.int16)
+    got = {}
+
+    def record(*xs, ell_live, **kw2):
+        got.update(args=xs, live=ell_live, kw=kw2)
+        return tlda_ref.lda_sample_tiles_ref(*xs, **kw2)
+
+    monkeypatch.setattr(k1, "lda_sample_tiles", record)
+    prepared = tlda_ops.sweep_args(*args[:6], cnt16, tpc16, args[8])
+    z, sp, ssq = tlda_ops.launch_kernel(prepared, **kw)
+    assert got["args"][6].data_ptr() == cnt16.data_ptr()
+    assert got["args"][7].data_ptr() == tpc16.data_ptr()
+    assert got["args"][6].dtype == got["args"][7].dtype == torch.int16
+    assert got["live"].dtype == torch.int32
+    assert torch.equal(got["live"], (cnt16 != 0).sum(1).to(torch.int32))
+    assert int(got["live"].max()) < cnt16.shape[1]     # rows with zeros
+    assert torch.equal(z, tlda_ref.lda_sample_tiles_ref(*args, **kw)[0])
+    wide = tlda_ops.sweep_args(*args[:6], args[6].long(), args[7].long(),
+                               args[8])
+    assert wide[6].dtype == wide[7].dtype == torch.int32
+
+
+def test_tokens_of_one_run_share_s_share():
+    """Under delayed counts S and Q depend only on the tile's word and the
+    document's frozen ELL row, so every token of a run (side by side slots
+    of a tile with one document) gets the same S/(S+Q) bit for bit in the
+    plain version: the property the kernel's one read per run rests on."""
+    a, kw, _ = sweep_case(256, seed=9, num_docs=12, avg_doc_len=60)
+    td, mask = a["token_doc"], a["token_mask"]
+    _, _, ssq = tlda_ref.lda_sample_tiles_ref(*port_args(a), **kw)
+    ssq = ssq.numpy()
+    same_run = mask[:, 1:] & mask[:, :-1] & (td[:, 1:] == td[:, :-1])
+    assert same_run.sum() > 100              # the corpus has real runs
+    np.testing.assert_array_equal(ssq[:, 1:][same_run], ssq[:, :-1][same_run])
 
 
 def test_sample_one_tile_matches_jax():

@@ -27,13 +27,14 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     """With jax blocked in sys.modules, every repro_torch module and
-    chip_smoke.py import, and no module of the JAX package gets loaded."""
+    the two chip scripts import, and no module of the JAX package gets
+    loaded."""
     code = f"""
 import importlib, sys
 sys.modules["jax"] = None
 sys.path.insert(0, {str(ROOT / "src")!r})
 sys.path.insert(0, {str(ROOT)!r})
-for name in {_port_modules()!r} + ["chip_smoke"]:
+for name in {_port_modules()!r} + ["chip_smoke", "k1_probe"]:
     importlib.import_module(name)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and (m == "repro" or m.startswith("repro.")
@@ -51,7 +52,7 @@ print("ok", len({_port_modules()!r}))
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "k1_probe.py"]))
 def test_no_jax_or_repro_imports_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -118,6 +119,31 @@ def test_chip_smoke_refuses_without_cuda():
     assert '"ok": true' not in res.stdout
 
 
+def test_k1_probe_refuses_without_cuda():
+    """k1_probe.py, which times build variants of K1, needs a card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    res = subprocess.run([sys.executable, str(ROOT / "k1_probe.py")],
+                         capture_output=True, text=True, cwd=str(ROOT),
+                         timeout=300)
+    assert res.returncode != 0
+    assert "k1_probe" not in res.stdout
+
+
+def test_build_variants_get_their_own_library():
+    """A source built with -D defines (k1_probe.py's variants) gets a
+    library of its own, never the shipped one's."""
+    from repro_torch.kernels import _build
+
+    base = _build.library_path("lda_sample")
+    probe = _build.library_path("lda_sample", ("LDA_SAMPLE_PROBE=1",))
+    assert probe != base and probe.parent == base.parent
+    assert probe == _build.library_path("lda_sample", ("LDA_SAMPLE_PROBE=1",))
+    assert probe != _build.library_path("lda_sample", ("LDA_SAMPLE_PROBE=2",))
+    src = _build.source_path("lda_sample").read_text()
+    assert "LDA_SAMPLE_PROBE" in src and "LDA_SAMPLE_TILES_PER_CTA" in src
+
+
 @pytest.mark.parametrize("name", ["fold_in", "lda_sample", "phi_update"])
 def test_every_kernel_source_is_found(name):
     from repro_torch.kernels import _build
@@ -182,5 +208,6 @@ def test_training_kernels_refuse_cpu_tensors():
                             torch.zeros(4, dtype=torch.int32),
                             torch.zeros((1, 4), dtype=torch.int32),
                             torch.zeros((1, 4), dtype=torch.int32),
-                            torch.zeros((2, 4, 2)), alpha=0.1, beta=0.01,
-                            num_words_total=3)
+                            torch.zeros((2, 4, 2)),
+                            ell_live=torch.zeros(1, dtype=torch.int32),
+                            alpha=0.1, beta=0.01, num_words_total=3)

@@ -78,6 +78,7 @@ def test_tile_shard_matches_jax(kind, extra_pad):
     t = tcorpus.tile_shard(as_port(c), docs, 16, pad)
     assert_shards_equal(j, t)
     assert t.token_mask.dtype == torch.bool and t.token_doc.dtype == torch.int32
+    assert t.max_doc_length == int(np.asarray(j.doc_length).max())
 
 
 @pytest.mark.parametrize("kind", ["lda", "zipf"])
@@ -166,6 +167,27 @@ def test_theta_to_ell_matches_lax_top_k(capacity):
 # ---------------------------------------------------------------------------
 # likelihood
 # ---------------------------------------------------------------------------
+def test_trainer_hands_the_sweep_int16_ell():
+    """C7 for the ELL: int16 counts and topics while K and the longest
+    document fit, int32 beyond; the values equal the int32 ELL's, which
+    ``theta_to_ell`` still returns by default."""
+    assert tupdates.ell_dtype(1024, 5000) == torch.int16
+    assert tupdates.ell_dtype(32767, 32767) == torch.int16
+    assert tupdates.ell_dtype(32768, 10) == torch.int32
+    assert tupdates.ell_dtype(64, 40000) == torch.int32
+    corpus = as_port(corpus_of("zipf"))
+    cfg = ttrainer.resolve_config(ttrainer.LDAConfig(num_topics=48,
+                                                     tile_tokens=16), corpus)
+    shard = tcorpus.tile_corpus(corpus, 1, 16)[0]
+    s0 = ttrainer.init_state(cfg, shard)
+    theta, c, t, over = ttrainer.theta_and_ell(cfg, shard, s0.z)
+    assert c.dtype == t.dtype == torch.int16
+    wc, wt, wo = tupdates.theta_to_ell(theta, cfg.ell_capacity)
+    assert wc.dtype == torch.int32
+    assert torch.equal(c.int(), wc) and torch.equal(t.int(), wt)
+    assert torch.equal(over, wo)
+
+
 def test_likelihood_terms_match_jax():
     rng = np.random.default_rng(1)
     D, V, K = 30, 60, 24
