@@ -15,28 +15,34 @@ card.  Phases, one JSON line each:
 Serving (a planted model made from a seed; engine buckets B <= 32,
 L in {32, 64, 128, 256}; 8 burn-in + 4 sample sweeps):
 
-3. fold-in kernel (K3) against plain version at B = 32, L = 256, P = 256 on
-   rows gathered from the planted model, same z0 and uniforms;
-4. K3 and plain-version times at each L bucket, B = 32 (CUDA events,
-   3 warm-up launches, median of 20);
+3. fold-in kernel (K3) against plain version at each L bucket, P = min(L,
+   K), on the 256 served documents in batches of B = 32 (the launch shape
+   the engine gives each bucket, printed beside its result), rows gathered
+   from the planted model, same z0 and uniforms;
+4. K3 and plain-version times at each L bucket, B = 32 (``time_ms``: CUDA
+   events around 20 launches run back to back after 3 warm-up launches);
 5. the serving main path: ``LDAServeEngine`` serves unseen documents drawn
-   from the model, then hot-swaps a second planted model and serves more;
-   K3's launch counter is read around it;
+   from the model (one cold burst), the same documents again in
+   ``WARM_BURSTS`` warm bursts (each burst's p99 and docs/s, their median
+   and spread: one cold burst's p99 spreads too widely to resolve a
+   change), then hot-swaps a second planted model and serves more; K3's
+   launch counter is read around it;
 6. the same storm warm and traced: the host span breakdown.
 
 Training (``configs/lda_nytimes.CONFIG`` on ``nytimes_like(1.0)``:
 D = 299,752 docs, V = 101,636, ~99.5M tokens, Zipf 1.1):
 
-7. host preparation: corpus, tiling, move to the card; the ELL's element
-   type (int16 where K and the longest document allow, C7);
+7. host preparation: corpus, tiling, move to the card, K2's segment table
+   (built once per tiling); the ELL's element type (int16 where K and the
+   longest document allow, C7);
 8. the sweep kernel (K1) against its plain version: one sweep from the
    initial state and the same uniforms on the heaviest word's first 1024
    tiles and the last 1024 (tail) tiles, at full K and V, on the ELL the
    trainer builds (``trainer.theta_and_ell``);
 9. the count kernels (K2 phi delta, K4 phi rebuild) against their plain
    versions at full V x K, after one full-width K1 sweep;
-10. K1, K2 and K4 times at full width (CUDA events, median of 20; the
-    plain K1 median of 3), each with its bound and, for K2 and K4, one
+10. K1, K2 and K4 times at full width (``time_ms``, 20 launches; the
+    plain K1 3), each with its bound and, for K2 and K4, one
     ``index_add_`` as the library yardstick; K1 also with the bytes its
     design moves (``k1_design``: runs, mean run length, design bytes and
     the rate they were moved at);
@@ -46,7 +52,7 @@ D = 299,752 docs, V = 101,636, ~99.5M tokens, Zipf 1.1):
 12. K1 against its plain version again, on the trained state (the same
     tiles as in 8);
 13. where an iteration's time goes: each step of ``lda_iteration`` timed
-    alone on the final state (CUDA events, median of 5), with K1's design
+    alone on the final state (``time_ms``, 5 calls), with K1's design
     bytes on that state;
 14. ``torch.profiler`` over two steady ``lda_iteration`` calls on the final
     state: the device-busy share of the window and the ten kernels with the
@@ -64,8 +70,8 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
   within 1e-3 absolute;
 * K2 and K4: equal to their plain versions (integer counts, exact);
 * serving: every theta sums to 1 (atol 1e-4), the planted major topic is
-  recovered on >= 90% of documents, every answer after the swap carries
-  the new model version, and K3 was launched;
+  recovered on >= 90% of documents in every burst, every answer after the
+  swap carries the new model version, and K3 was launched;
 * training: K1 and K2 launched once per iteration plus once for fit's
   warm-up iteration, the last LL/token above the first, phi == K4(z)
   exactly, phi_sum == phi.sum(0), phi.sum() == number of tokens, every z
@@ -104,6 +110,7 @@ TRAIN_ITERS = 10
 
 BATCH, BUCKETS, SWEEPS = 32, (32, 64, 128, 256), (8, 4)
 SERVE_DOCS, SWAP_DOCS = 256, 32
+WARM_BURSTS = 7                # the cold burst's docs again, engine warm
 
 
 def emit(phase: str, **fields):
@@ -116,6 +123,26 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()
     return out[0]
+
+
+def burst(engine, docs, majors) -> dict:
+    """One burst of ``docs`` through a warm engine: its p50 / p99 latency,
+    docs/s over its wall time, and the share of planted topics
+    recovered."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    results = engine.infer_many(docs, timeout=300.0)
+    wall = time.perf_counter() - t0
+    lat = np.asarray([r["latency_ms"] for r in results])
+    if not np.allclose([r["theta"].sum() for r in results], 1.0,
+                       atol=SUM_ATOL):
+        raise AssertionError("a served theta does not sum to 1")
+    return dict(p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)),
+                docs_per_sec=len(docs) / wall,
+                recovered=float(np.mean([int(r["theta"].argmax()) == m
+                                         for r, m in zip(results, majors)])))
 
 
 def gathered_batch(snap, docs, L, seed, n_sweeps):
@@ -153,23 +180,80 @@ def bytes_and_ops(args, n_sweeps, z_final):
     return nbytes, ops
 
 
+def fold_in_vs_plain(snap, docs, L, V) -> dict:
+    """K3 against its plain version at bucket L, on every batch of BATCH of
+    ``docs`` (the engine's batches, so the kernel runs at the launch shape
+    the serving path gives this bucket): the draws after one sweep from one
+    start, and theta, the sparse share and the argmax topic after the full
+    sweeps."""
+    import torch
+
+    from repro_torch.kernels.fold_in import kernel, ref
+
+    K = snap.num_topics
+    P = min(L, K)
+    burn_in, samples = SWEEPS
+    kw1 = dict(num_words_total=V, burn_in=0, samples=1, ell_capacity=P)
+    kwf = dict(num_words_total=V, burn_in=burn_in, samples=samples,
+               ell_capacity=P)
+    flips = n_real = err = 0
+    sp_eq, arg_eq, l1 = [], [], []
+    ssq_rel, equal = 0.0, True
+    for j, i in enumerate(range(0, len(docs), BATCH)):
+        batch = docs[i:i + BATCH]
+        one = gathered_batch(snap, batch, L, seed=11 + 2 * j, n_sweeps=1)
+        k1 = kernel.fold_in_docs(*one, **kw1)
+        r1 = ref.fold_in_docs_ref(*one, **kw1)
+        real = one[4] != 0
+        n_real += int(real.sum())
+        flips += int(((k1[3] != r1[3]) & real).sum())
+        full = gathered_batch(snap, batch, L, seed=12 + 2 * j,
+                              n_sweeps=sum(SWEEPS))
+        kf = kernel.fold_in_docs(*full, **kwf)
+        rf = ref.fold_in_docs_ref(*full, **kwf)
+        sp_eq.append(kf[1] == rf[1])
+        arg_eq.append(kf[0].argmax(1) == rf[0].argmax(1))
+        tk = kf[0].float() / kf[0].sum(1, keepdim=True).clamp(min=1)
+        tr = rf[0].float() / rf[0].sum(1, keepdim=True).clamp(min=1)
+        l1.append((tk - tr).abs().sum(1))
+        err = max(err, int((kf[0] - rf[0]).abs().max()))
+        ssq_rel = max(ssq_rel, float(((kf[2] - rf[2]).abs()
+                                      / rf[2].abs().clamp(min=1e-30)).max()))
+        equal = equal and bool(torch.equal(kf[0], rf[0]))
+    return dict(B=BATCH, L=L, K=K, P=P, docs=len(docs),
+                shape=kernel.launch_shape(BATCH, L, K, P),
+                real_tokens=n_real, one_sweep_flips=flips,
+                one_sweep_flip_rate=flips / n_real, theta_sum_equal=equal,
+                sp_doc_agreement=float(torch.cat(sp_eq).float().mean()),
+                argmax_doc_agreement=float(torch.cat(arg_eq).float().mean()),
+                mean_theta_l1=float(torch.cat(l1).mean()),
+                theta_sum_max_abs_err=err, ssq_max_rel_err=ssq_rel)
+
+
+HOLD_CYCLES = 100_000_000      # ~57 ms of the card's clock: the host
+#                                enqueues the timed calls meanwhile
+
+
 def time_ms(fn, n=20, warm=3):
+    """Device time of one call of ``fn``: after ``warm`` calls, CUDA events
+    around ``n`` calls run back to back, over n.  The stream is held by a
+    spin kernel while the host enqueues them, so a kernel shorter than its
+    Python launch path is timed on the card, not on the host (for a
+    function that synchronises, the host's time stays in)."""
     import torch
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    times = []
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    s.record()
     for _ in range(n):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
         fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    times.sort()
-    return times[len(times) // 2]
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
 
 
 def slot_bytes(z) -> int:
@@ -402,6 +486,10 @@ def train_phases(card: str, scale: float, iters: int,
     shard = shard.to(dev)
     torch.cuda.synchronize()
     t_h2d = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg = phi_ops.shard_segments(shard)      # K2's table, once per tiling
+    torch.cuda.synchronize()
+    t_seg = time.perf_counter() - t0
     n, t = shard.token_doc.shape
     V, K, P = corpus.num_words, cfg.num_topics, cfg.ell_capacity
     nb, bw = K // pick_search_block(K), pick_search_block(K)
@@ -409,7 +497,10 @@ def train_phases(card: str, scale: float, iters: int,
          tiles=n, tile_tokens=t, real_tokens=shard.num_tokens,
          slots=n * t, max_doc_length=shard.max_doc_length,
          ell_dtype=str(updates.ell_dtype(K, shard.max_doc_length)),
-         corpus_s=t_corpus, tiling_s=t_tile, to_device_s=t_h2d)
+         corpus_s=t_corpus, tiling_s=t_tile, to_device_s=t_h2d,
+         k2_segments=int(seg.shape[0]),
+         k2_sole_segments=int(seg[:, 3].sum()),
+         k2_segment_tiles=k24.segment_tiles(), k2_table_s=t_seg)
 
     # -- 8. K1 against its plain version on heavy + tail tiles ---------------
     state0 = trainer.init_state(cfg, shard)
@@ -424,7 +515,7 @@ def train_phases(card: str, scale: float, iters: int,
     # -- 9. K2 and K4 against their plain versions at full V x K -------------
     z1, sp1, _ = k1.lda_sample_tiles(*full, ell_live=live0, **kw)
     tw, tf, tm = shard.tile_word, shard.tile_first, shard.token_mask
-    dk = k24.phi_delta_tiles(tw, z1, state0.z, tm, V, K)
+    dk = k24.phi_delta_tiles(seg, z1, state0.z, tm, V, K)
     dr = k24_ref.phi_delta_tiles_ref(tw, tf, z1, state0.z, tm, V, K)
     uk = k24.phi_update_tiles(tw, z1, tm, V, K)
     ur = k24_ref.phi_update_tiles_ref(tw, tf, z1, tm, V, K)
@@ -461,7 +552,7 @@ def train_phases(card: str, scale: float, iters: int,
         **bound(*k1_bytes_and_ops(full, sp1, nb, bw), FP32_FLOPS))
     real_tok = shard.num_tokens
     timing["k2"] = dict(
-        ms=time_ms(lambda: k24.phi_delta_tiles(tw, z1, state0.z, tm, V, K)),
+        ms=time_ms(lambda: k24.phi_delta_tiles(seg, z1, state0.z, tm, V, K)),
         plain_ms=time_ms(lambda: k24_ref.phi_delta_tiles_ref(
             tw, tf, z1, state0.z, tm, V, K)),
         library_ms=time_ms(lambda: library(idx2, val2)),
@@ -529,7 +620,7 @@ def train_phases(card: str, scale: float, iters: int,
 
     # -- 13. where an iteration's time goes (final state) ---------------------
     z2, sp2, _ = k1.lda_sample_tiles(*fin, ell_live=live, **kw)
-    d2 = k24.phi_delta_tiles(tw, z2, st.z, tm, V, K)
+    d2 = k24.phi_delta_tiles(seg, z2, st.z, tm, V, K)
     steps = dict(
         theta_from_z=lambda: updates.theta_from_z(
             st.z, shard.token_doc, tm, shard.num_docs_local, K),
@@ -537,7 +628,7 @@ def train_phases(card: str, scale: float, iters: int,
         draw_uniforms=lambda: draw_sweep_uniforms(gen, n, t),
         live_lengths=lambda: k1_ops.live_lengths(c),
         k1_sweep=lambda: k1.lda_sample_tiles(*fin, ell_live=live, **kw),
-        k2_phi_delta=lambda: k24.phi_delta_tiles(tw, z2, st.z, tm, V, K),
+        k2_phi_delta=lambda: k24.phi_delta_tiles(seg, z2, st.z, tm, V, K),
         phi_advance=lambda: updates.phi_totals(st.phi_vk + d2),
         log_likelihood=lambda: trainer.log_likelihood(cfg, shard, st))
     ms = {k: time_ms(f, n=5, warm=1) for k, f in steps.items()}
@@ -615,47 +706,31 @@ def main() -> int:
     emit("model", V=V, K=K, phi_bytes=snap.phi_vk.numel() * 4,
          seconds=time.perf_counter() - t0)
 
-    # -- 3. kernel against plain version at full width ----------------------
-    L, P = BUCKETS[-1], BUCKETS[-1]
-    burn_in, samples = SWEEPS
-    cmp_docs = docs[:BATCH]
-    one = gathered_batch(snap, cmp_docs, L, seed=11, n_sweeps=1)
-    kw1 = dict(num_words_total=V, burn_in=0, samples=1, ell_capacity=P)
-    k1, r1 = kernel.fold_in_docs(*one, **kw1), ref.fold_in_docs_ref(*one, **kw1)
-    torch.cuda.synchronize()
-    real = one[4] != 0
-    n_real = int(real.sum())
-    flips = int(((k1[3] != r1[3]) & real).sum())
-    full = gathered_batch(snap, cmp_docs, L, seed=12, n_sweeps=sum(SWEEPS))
-    kwf = dict(num_words_total=V, burn_in=burn_in, samples=samples,
-               ell_capacity=P)
-    kf, rf = kernel.fold_in_docs(*full, **kwf), ref.fold_in_docs_ref(*full, **kwf)
-    torch.cuda.synchronize()
-    sp_agree = float((kf[1] == rf[1]).float().mean())
-    arg_agree = float((kf[0].argmax(1) == rf[0].argmax(1)).float().mean())
-    tk = kf[0].float() / kf[0].sum(1, keepdim=True).clamp(min=1)
-    tr = rf[0].float() / rf[0].sum(1, keepdim=True).clamp(min=1)
-    l1 = float((tk - tr).abs().sum(1).mean())
-    max_abs_err = int((kf[0] - rf[0]).abs().max())
-    ssq_rel = float(((kf[2] - rf[2]).abs()
-                     / rf[2].abs().clamp(min=1e-30)).max())
-    emit("kernel_vs_plain", B=BATCH, L=L, K=K, P=P, real_tokens=n_real,
-         one_sweep_flips=flips, one_sweep_flip_rate=flips / n_real,
-         theta_sum_equal=bool(torch.equal(kf[0], rf[0])),
-         sp_doc_agreement=sp_agree, argmax_doc_agreement=arg_agree,
-         mean_theta_l1=l1, theta_sum_max_abs_err=max_abs_err,
-         ssq_max_rel_err=ssq_rel)
-    if flips / n_real > ONE_SWEEP_MISMATCH:
-        raise AssertionError(f"one-sweep draws differ on {flips}/{n_real}")
-    if sp_agree < DOC_AGREEMENT or arg_agree < DOC_AGREEMENT:
-        raise AssertionError(f"doc agreement sp={sp_agree} argmax={arg_agree}")
-    if l1 > MEAN_THETA_L1:
-        raise AssertionError(f"mean theta L1 {l1} > {MEAN_THETA_L1}")
+    # -- 3. kernel against plain version at every bucket, full width -------
+    max_abs_err = 0
+    for Lb in BUCKETS:
+        cmp = fold_in_vs_plain(snap, docs, Lb, V)
+        emit("kernel_vs_plain", **cmp)
+        max_abs_err = max(max_abs_err, cmp["theta_sum_max_abs_err"])
+        where = f"at L = {Lb}, launch shape {cmp['shape']}"
+        if cmp["one_sweep_flip_rate"] > ONE_SWEEP_MISMATCH:
+            raise AssertionError(
+                f"one-sweep draws differ on {cmp['one_sweep_flips']}/"
+                f"{cmp['real_tokens']} {where}")
+        sp_agree, arg_agree = (cmp["sp_doc_agreement"],
+                               cmp["argmax_doc_agreement"])
+        if sp_agree < DOC_AGREEMENT or arg_agree < DOC_AGREEMENT:
+            raise AssertionError(
+                f"doc agreement sp={sp_agree} argmax={arg_agree} {where}")
+        if cmp["mean_theta_l1"] > MEAN_THETA_L1:
+            raise AssertionError(f"mean theta L1 {cmp['mean_theta_l1']} > "
+                                 f"{MEAN_THETA_L1} {where}")
 
     # -- 4. times at each L bucket, B = 32 ----------------------------------
+    burn_in, samples = SWEEPS
     rows = []
     for Lb in BUCKETS:
-        args = gathered_batch(snap, cmp_docs, Lb, seed=13,
+        args = gathered_batch(snap, docs[:BATCH], Lb, seed=13,
                               n_sweeps=sum(SWEEPS))
         kwb = dict(num_words_total=V, burn_in=burn_in, samples=samples,
                    ell_capacity=min(Lb, K))
@@ -666,6 +741,8 @@ def main() -> int:
                                     z_final)
         b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
         rows.append(dict(B=BATCH, L=Lb, P=min(Lb, K), ms=k_ms, plain_ms=p_ms,
+                         shape=kernel.launch_shape(BATCH, Lb, K,
+                                                   min(Lb, K)),
                          bytes=nbytes, ops=ops, bytes_ms=b_ms, ops_ms=o_ms,
                          bound_ms=max(b_ms, o_ms),
                          bound_by="bytes" if b_ms >= o_ms else "operations"))
@@ -680,6 +757,7 @@ def main() -> int:
     try:
         results = engine.infer_many(docs, timeout=300.0)
         stats = engine.stats()
+        warm = [burst(engine, docs, majors) for _ in range(WARM_BURSTS)]
         snap2 = serve_lda.planted_snapshot(V, K, seed=1)
         _, home2 = serve_lda.planted_model(V, K, seed=1)
         docs2, majors2 = serve_lda.planted_docs(home2, K, SWAP_DOCS, avg_len,
@@ -715,6 +793,14 @@ def main() -> int:
         raise AssertionError("an answer after the swap has an old version")
     if launches < 1:
         raise AssertionError("the main path never launched the kernel")
+    p99s = [w["p99_ms"] for w in warm]
+    rates = [w["docs_per_sec"] for w in warm]
+    emit("serve_warm", card=card, docs=len(docs), bursts=warm,
+         p99_ms_median=float(np.median(p99s)), p99_ms_min=min(p99s),
+         p99_ms_max=max(p99s), docs_per_sec_median=float(np.median(rates)),
+         docs_per_sec_min=min(rates), docs_per_sec_max=max(rates))
+    if min(w["recovered"] for w in warm) < RECOVERY:
+        raise AssertionError("a warm burst recovered too few planted topics")
 
     # -- 6. where the time goes: the same storm, warm and traced ------------
     args = serve_lda.build_argparser().parse_args(["--snapshot", "unused.npz"])
@@ -745,7 +831,7 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": None}
-    del snap, snap2, model, engine, one, full, kf, rf, k1, r1, args
+    del snap, snap2, model, engine, args
     torch.cuda.empty_cache()
 
     train_rows = train_phases(card, TRAIN_SCALE, TRAIN_ITERS)

@@ -1,0 +1,251 @@
+#!/usr/bin/env python3
+"""Where the port's hand-written kernels spend their time: build variants of
+the training sweep kernel K1 (``lda_sample.cu``), the phi-delta kernel K2
+(``phi_update.cu``) and the fold-in kernel K3 (``fold_in.cu``), timed on
+chip_smoke's two cells, one card.
+
+    python3 kernel_probe.py
+    python3 kernel_probe.py --smoke-of DIR   # DIR's chip_smoke.py, timed
+                                             # with this checkout's time_ms
+    python3 kernel_probe.py --serve-of DIR   # cold + warm serving bursts
+                                             # through DIR's engine
+
+Each source is built several ways with ``-D``, one ``nvcc`` each, all
+started together:
+
+* K1: ``shipped``; ``one_tile_per_cta`` (``LDA_SAMPLE_TILES_PER_CTA=1``: p*
+  and its search sums rebuilt for every tile); ``no_ell_loads``
+  (``LDA_SAMPLE_PROBE=1``: no ELL row read, each run's scan and draws go
+  over a row already in shared memory); ``no_runs`` (``LDA_SAMPLE_PROBE=2``:
+  only the per-tile work);
+* K2: ``shipped``; ``no_flush`` (``PHI_UPDATE_PROBE=1``: the histograms are
+  built but nothing is written to the (V, K) output besides its memset);
+  ``no_hist`` (``PHI_UPDATE_PROBE=2``: the tokens are read, nothing is
+  counted or written);
+* K3: ``shipped``; ``no_draws`` (``FOLD_IN_PROBE=2``: the sweeps count
+  theta, select the ELL and recount, but draw no token);
+  ``no_pass_no_draws`` (``FOLD_IN_PROBE=3``: besides, no per-doc pass over
+  the gathered rows for Q and the block sums).  Without draws z never
+  moves, so the two no-draw builds do the same sweeps and differ by the
+  per-doc pass alone (skipping the pass with draws on would change the
+  draws).
+
+Timed with ``chip_smoke.time_ms`` (20 launches back to back) on the same
+inputs as chip_smoke: K3 at each serving bucket (B = 32, planted
+NYTimes-width model), K1 and K2 on the training cell's initial state and
+on its state after 10 iterations.  One JSON line per kernel and state
+gives the times and their differences.  The probe builds compute wrong
+results; only their times are used.  Exits non-zero, with no result line,
+without a card.
+"""
+from __future__ import annotations
+
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import chip_smoke as cs
+
+K1_VARIANTS = {
+    "shipped": (),
+    "one_tile_per_cta": ("LDA_SAMPLE_TILES_PER_CTA=1",),
+    "no_ell_loads": ("LDA_SAMPLE_PROBE=1",),
+    "no_runs": ("LDA_SAMPLE_PROBE=2",),
+}
+K2_VARIANTS = {
+    "shipped": (),
+    "no_flush": ("PHI_UPDATE_PROBE=1",),
+    "no_hist": ("PHI_UPDATE_PROBE=2",),
+}
+K3_VARIANTS = {
+    "shipped": (),
+    "no_draws": ("FOLD_IN_PROBE=2",),
+    "no_pass_no_draws": ("FOLD_IN_PROBE=3",),
+}
+BUILDS = ([("lda_sample", d) for d in K1_VARIANTS.values()]
+          + [("phi_update", d) for d in K2_VARIANTS.values()]
+          + [("fold_in", d) for d in K3_VARIANTS.values()])
+
+
+def k1_report(card, state, args, kw, live):
+    from repro_torch.kernels.lda_sample import kernel as k1
+
+    ms = {name: cs.time_ms(lambda d=d: k1.sweep_variant(
+        d, *args, ell_live=live, **kw)) for name, d in K1_VARIANTS.items()}
+    cs.emit("k1_probe", card=card, state=state, ms=ms,
+            ell_loads_ms=ms["shipped"] - ms["no_ell_loads"],
+            run_work_without_loads_ms=ms["no_ell_loads"] - ms["no_runs"],
+            tile_work_ms=ms["no_runs"],
+            pstar_reuse_saves_ms=ms["one_tile_per_cta"] - ms["shipped"],
+            k1_design=cs.k1_design(args, ms["shipped"], k1.tiles_per_cta()))
+
+
+def k2_report(card, state, shard, z_new, z_old, V, K):
+    import torch
+
+    from repro_torch.kernels.phi_update import kernel as k24
+    from repro_torch.kernels.phi_update import ops as phi_ops
+
+    tm = shard.token_mask
+    seg = phi_ops.shard_segments(shard)
+    ms = {name: cs.time_ms(lambda d=d: k24.delta_variant(
+        d, seg, z_new, z_old, tm, V, K)) for name, d in K2_VARIANTS.items()}
+    n, t = z_new.shape
+    out = torch.empty((V, K), dtype=torch.int32, device=z_new.device)
+    memset_ms = cs.time_ms(out.zero_)
+    cs.emit("k2_probe", card=card, state=state, ms=ms, memset_ms=memset_ms,
+            moved_tokens=int(((z_new != z_old) & tm).sum()),
+            flush_ms=ms["shipped"] - ms["no_flush"],
+            hist_ms=ms["no_flush"] - ms["no_hist"],
+            read_and_launch_ms=ms["no_hist"],
+            bound=cs.bound(*cs.count_bytes_and_ops(
+                n, t, z_new.element_size(), V, K, shard.num_tokens, True),
+                cs.INT32_OPS))
+
+
+def k3_report(card):
+    from repro_torch.configs import lda_nytimes
+    from repro_torch.kernels.fold_in import kernel
+    from repro_torch.launch import serve_lda
+
+    V, K = lda_nytimes.FULL["num_words"], lda_nytimes.NUM_TOPICS
+    snap = serve_lda.planted_snapshot(V, K, seed=0)
+    _, home = serve_lda.planted_model(V, K, seed=0)
+    docs, _ = serve_lda.planted_docs(home, K, cs.BATCH,
+                                     lda_nytimes.FULL["avg_doc_len"], seed=1)
+    burn_in, samples = cs.SWEEPS
+    for L in cs.BUCKETS:
+        args = cs.gathered_batch(snap, docs, L, seed=13,
+                                 n_sweeps=sum(cs.SWEEPS))
+        kw = dict(num_words_total=V, burn_in=burn_in, samples=samples,
+                  ell_capacity=min(L, K))
+        ms = {name: cs.time_ms(lambda d=d: kernel.fold_in_variant(
+            d, *args, **kw)) for name, d in K3_VARIANTS.items()}
+        C, warps = kernel.launch_shape(cs.BATCH, L, K, min(L, K))
+        cs.emit("k3_probe", card=card, B=cs.BATCH, L=L, ctas_per_doc=C,
+                warps_per_cta=warps, ms=ms,
+                draws_ms=ms["shipped"] - ms["no_draws"],
+                doc_pass_ms=ms["no_draws"] - ms["no_pass_no_draws"],
+                sweeps_without_draws_ms=ms["no_pass_no_draws"])
+
+
+def smoke_of(checkout) -> int:
+    """Run another checkout's ``chip_smoke.py`` (the parent commit's, say)
+    with this checkout's ``time_ms``, so that both trees' kernels are timed
+    one way in one call.  Its own ``src`` goes first on the import path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "other_chip_smoke", Path(checkout).resolve() / "chip_smoke.py")
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other.time_ms = cs.time_ms
+    return other.main()
+
+
+def serve_of(checkout) -> int:
+    """One cold and ``chip_smoke.WARM_BURSTS`` warm bursts of chip_smoke's
+    256 planted NYTimes-width documents through another checkout's serving
+    engine (its own ``src`` first on the import path), each burst's p99
+    and docs/s measured as chip_smoke measures this checkout's."""
+    sys.path.insert(0, str(Path(checkout).resolve() / "src"))
+    import numpy as np
+
+    from repro_torch.configs import lda_nytimes
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve_lda
+
+    _build.load("fold_in")      # built before the cold burst, as there
+    V, K = lda_nytimes.FULL["num_words"], lda_nytimes.NUM_TOPICS
+    snap = serve_lda.planted_snapshot(V, K, seed=0)
+    _, home = serve_lda.planted_model(V, K, seed=0)
+    docs, majors = serve_lda.planted_docs(
+        home, K, cs.SERVE_DOCS, lda_nytimes.FULL["avg_doc_len"], seed=1)
+    args = serve_lda.build_argparser().parse_args(
+        ["--snapshot", "unused.npz", "--no-trace"])
+    _, engine = serve_lda.make_engine(args, snap)
+    try:
+        cold = cs.burst(engine, docs, majors)
+        warm = [cs.burst(engine, docs, majors)
+                for _ in range(cs.WARM_BURSTS)]
+    finally:
+        engine.stop()
+    p99s = [w["p99_ms"] for w in warm]
+    rates = [w["docs_per_sec"] for w in warm]
+    cs.emit("serve_bursts", checkout=str(checkout), card=cs.card_line(),
+            cold=cold, warm=warm, p99_ms_median=float(np.median(p99s)),
+            p99_ms_min=min(p99s), p99_ms_max=max(p99s),
+            docs_per_sec_median=float(np.median(rates)),
+            docs_per_sec_min=min(rates), docs_per_sec_max=max(rates))
+    return 0
+
+
+def main() -> int:
+    import torch
+
+    if len(sys.argv) == 3 and sys.argv[1] == "--smoke-of":
+        return smoke_of(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-of":
+        return serve_of(sys.argv[2])
+    if not torch.cuda.is_available():
+        print("kernel_probe: no CUDA card visible; nothing was run",
+              file=sys.stderr)
+        return 2
+    from repro_torch.configs import lda_nytimes
+    from repro_torch.core import trainer
+    from repro_torch.core.corpus import tile_corpus
+    from repro_torch.core.sampler import draw_sweep_uniforms
+    from repro_torch.data.synthetic import nytimes_like
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.lda_sample import ops as k1_ops
+    from repro_torch.train import fit
+
+    card = cs.card_line()
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(BUILDS)) as pool:
+        logs = list(pool.map(lambda b: _build.build(*b)[1], BUILDS))
+    cs.emit("probe_build", seconds=time.perf_counter() - t0, ptxas={
+        f"{name}{list(d)}": [ln.strip() for ln in log.splitlines()
+                             if "registers" in ln]
+        for (name, d), log in zip(BUILDS, logs)})
+
+    k3_report(card)
+    torch.cuda.empty_cache()
+
+    corpus = nytimes_like(cs.TRAIN_SCALE, seed=0)
+    cfg = trainer.resolve_config(lda_nytimes.CONFIG, corpus)
+    shard = tile_corpus(corpus, 1, cfg.tile_tokens)[0].to(dev)
+    n, t = shard.token_doc.shape
+    V, K = corpus.num_words, cfg.num_topics
+    kw = dict(alpha=cfg.resolved_alpha(), beta=cfg.beta, num_words_total=V)
+
+    def sweep_inputs(state, iteration):
+        _, c, tp, _ = trainer.theta_and_ell(cfg, shard, state.z)
+        u = draw_sweep_uniforms(trainer.iteration_generator(cfg, iteration,
+                                                            dev), n, t)
+        args = (shard.tile_word, shard.token_doc, shard.token_mask, state.z,
+                state.phi_vk, state.phi_sum, c, tp, u)
+        return args, k1_ops.live_lengths(c)
+
+    for state_name in ("initial", "trained"):
+        if state_name == "initial":
+            st = trainer.init_state(cfg, shard)
+            args, live = sweep_inputs(st, 0)
+        else:
+            st = fit(corpus, lda_nytimes.CONFIG, cs.TRAIN_ITERS, device=dev,
+                     shard=shard, eval_every=cs.TRAIN_ITERS).state
+            args, live = sweep_inputs(st, st.iteration)
+        k1_report(card, state_name, args, kw, live)
+        z_new = k1.lda_sample_tiles(*args, ell_live=live, **kw)[0]
+        k2_report(card, state_name, shard, z_new, st.z, V, K)
+        del args, live, z_new, st
+        torch.cuda.empty_cache()
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -124,6 +124,10 @@ class TiledCorpusShard:
     num_docs_local: int
     max_doc_length: int     # the longest local doc, known on the host
     num_words_total: int = 0  # global vocabulary size (Eq. 1's V)
+    # tables derived from the tiling on this device (``cached``); a copy
+    # made by ``to`` starts without them
+    _derived: dict = dataclasses.field(default_factory=dict, init=False,
+                                       repr=False, compare=False)
 
     _TENSORS = ("tile_word", "token_doc", "token_mask", "tile_first",
                 "doc_length", "doc_global", "token_uid")
@@ -131,6 +135,14 @@ class TiledCorpusShard:
     @property
     def device(self) -> torch.device:
         return self.token_doc.device
+
+    def cached(self, key: str, build):
+        """``build()`` on first call for ``key``, then its kept result: for
+        tables that depend only on the tiling, such as the phi-delta
+        kernel's segment table, built once instead of every iteration."""
+        if key not in self._derived:
+            self._derived[key] = build()
+        return self._derived[key]
 
     def to(self, device) -> "TiledCorpusShard":
         """A copy with every tensor on ``device``."""

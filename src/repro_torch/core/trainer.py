@@ -243,7 +243,8 @@ def lda_iteration(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
     # a CUDA device), exact in integer arithmetic
     delta = phi_ops.phi_delta(shard.tile_word, shard.tile_first, state.z,
                               z_new, shard.token_mask,
-                              num_words=shard.num_words, num_topics=K)
+                              num_words=shard.num_words, num_topics=K,
+                              segments=phi_ops.shard_segments(shard))
     phi = state.phi_vk + delta
     new_state = LDAState(z=z_new, phi_vk=phi, phi_sum=updates.phi_totals(phi),
                          iteration=state.iteration + 1)

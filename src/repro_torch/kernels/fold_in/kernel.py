@@ -1,16 +1,19 @@
 """CUDA fold-in kernel for Hopper: the wrapper around ``csrc/fold_in.cu``.
 
 Replaces ``repro/kernels/fold_in/kernel.py::fold_in_docs`` (the Pallas TPU
-kernel).  One CTA per request document runs every burn-in and sample sweep
-on-chip; see the source note in ``csrc/fold_in.cu`` for the design.
+kernel).  A thread-block cluster of CTAs per request document runs every
+burn-in and sample sweep on-chip: the doc's tokens split across the
+cluster, one warp per token with its lanes across the token's row, each
+new topic counted into every CTA of the cluster through distributed
+shared memory and the ELL re-selected in every CTA.  The CTAs a document
+gets and the warps a CTA has are chosen at launch (``launch_shape``) so
+that the batch runs in one wave; see the source note in
+``csrc/fold_in.cu``.
 
-What bounds it: the per-token searches — each token and sweep reads P ELL
-entries plus, on the dense side, nb block sums and one block's p*, gathered
-from the (B, L, K) int32 rows in device memory / L2.  The bytes floor is
-reading those rows once (33.5 MB at B = 32, L = 256, K = 1024, ~10 us at
-3.35 TB/s); the design keeps the small per-doc state (theta, ELL, block
-sums, z) in shared memory and recomputes p* rather than staging its 1 MB
-table, so the searches, not the bytes, set its time.
+What bounds it: the bytes floor is reading the gathered (B, L, K) int32
+rows once (33.5 MB at B = 32, L = 256, K = 1024, ~10 us at 3.35 TB/s);
+its time is the chain of sweeps, each an ELL select, a warp's scans and
+searches per token over rows held in L2, and a cluster-wide recount.
 
 Built with ``nvcc`` for ``sm_90a`` at first launch (``kernels/_build.py``)
 and bound with ctypes.  The wrapper refuses CPU tensors: ``ops.py`` sends
@@ -19,6 +22,7 @@ those to the plain version in ``ref.py``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,13 +32,28 @@ from repro_torch.kernels import _build
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 
 
-def _lib():
-    lib = _build.load("fold_in")
+def _lib(defines: tuple[str, ...] = ()):
+    """The built library; ``defines`` (``NAME=VALUE``) select a build
+    variant of the source, which only ``kernel_probe.py`` asks for."""
+    lib = _build.load("fold_in", defines)
     fn = lib.fold_in_docs_launch
     if fn.argtypes is None:   # pointers and the stream as c_void_p, not int
         fn.argtypes = [_vp] * 10 + [_i] * 8 + [_vp]
         fn.restype = _i
+        lib.fold_in_docs_shape.argtypes = [_i] * 5 + [ctypes.POINTER(_i)] * 2
+        lib.fold_in_docs_shape.restype = None
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def launch_shape(B: int, L: int, K: int, P: int) -> tuple[int, int]:
+    """(CTAs a document, warps a CTA) that a (B, L) batch is launched with:
+    the most warps on each document's tokens with which the whole batch
+    runs in one wave.  The launch picks it itself; this reports it."""
+    C, warps = _i(), _i()
+    _lib().fold_in_docs_shape(B, L, K, P, pick_search_block(K),
+                              ctypes.byref(C), ctypes.byref(warps))
+    return C.value, warps.value
 
 
 def fold_in_docs(
@@ -54,6 +73,17 @@ def fold_in_docs(
 
     Returns (theta_sum (B, K) int32, sparse_draws (B,) int32, ssq_sum (B,)
     float32, z (B, L) int32 — the final assignments)."""
+    out = fold_in_variant((), phi_tok, phi_sum, hyper, uniforms, mask, z0,
+                          num_words_total=num_words_total, burn_in=burn_in,
+                          samples=samples, ell_capacity=ell_capacity)
+    fold_in_docs.launches += 1
+    return out
+
+
+def fold_in_variant(defines, phi_tok, phi_sum, hyper, uniforms, mask, z0, *,
+                    num_words_total, burn_in, samples, ell_capacity):
+    """``fold_in_docs`` through the build of the source with ``defines``
+    (``()``: the shipped one), without counting the launch."""
     dev = _build.require_cuda(phi_tok, "fold_in_docs",
                               "ref.fold_in_docs_ref")
     B, L, K = phi_tok.shape
@@ -72,18 +102,17 @@ def fold_in_docs(
     sp = torch.empty((B,), dtype=torch.int32, device=dev)
     ssq = torch.empty((B,), dtype=torch.float32, device=dev)
     z = torch.empty((B, L), dtype=torch.int32, device=dev)
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = _build.current_stream(dev)
-        err = lib.fold_in_docs_launch(
+        err = _lib(defines).fold_in_docs_launch(
             phi_tok.data_ptr(), phi_sum.data_ptr(), hyper.data_ptr(),
             uniforms.data_ptr(), mask.data_ptr(), z0.data_ptr(),
             theta_sum.data_ptr(), sp.data_ptr(), ssq.data_ptr(), z.data_ptr(),
             B, L, K, P, burn_in, samples, int(num_words_total),
             pick_search_block(K), stream)
-    if err != 0:
-        raise RuntimeError(f"fold_in_docs launch failed: CUDA error {err}")
-    fold_in_docs.launches += 1
+    if err != 0:   # 1 (invalid value): among others, no launch shape fits
+        raise RuntimeError(f"fold_in_docs launch failed at B {B}, L {L}, "
+                           f"K {K}, P {P}: CUDA error {err}")
     return theta_sum, sp, ssq, z
 
 

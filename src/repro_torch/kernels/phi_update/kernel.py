@@ -3,11 +3,19 @@
 
 Replace ``repro/kernels/phi_update/kernel.py::phi_delta_tiles`` (K2, the
 trainer's per-iteration phi delta) and ``::phi_update_tiles`` (K4, a full
-rebuild of phi from z), the Pallas TPU kernels.  One CTA per word tile
-builds the tile's K-bin histogram in shared memory and adds its non-zero
-bins into the word's row of a zeroed (V, K) int32 output with integer
-atomics: exact in any order, so rows that no tile visits stay 0 and
-``tile_first`` is not needed (padding tiles have an all-false mask).
+rebuild of phi from z), the Pallas TPU kernels.  Both add into a zeroed
+(V, K) int32 output with integer adds, exact in any order, so rows that no
+tile visits stay 0.
+
+K2 reads the run structure that the TPU kernel reads from ``tile_first``
+(a word's output block kept across its run of tiles) from a segment table
+(``ops.segment_table``): stretches of at most ``segment_tiles()``
+consecutive tiles of one word, cut where the word changes or
+``tile_first`` is set.  One warp reduces a segment in its own shared K-bin
+histogram and flushes it once, with plain stores where the word owns one
+segment and with atomics where it owns several; padding tiles have an
+all-false mask and add nothing.  K4 keeps one CTA per tile, a shared
+histogram flushed with atomics, and reads ``tile_word`` only.
 
 What bounds them: bytes — reading z (int16 or int32), the mask and the tile
 words once and writing the (V, K) output once; see the source note.
@@ -28,22 +36,29 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 Z_DTYPES = (torch.int16, torch.int32)
 
 
-def _lib():
-    lib = _build.load("phi_update")
+def _lib(defines: tuple[str, ...] = ()):
+    """The built library; ``defines`` (``NAME=VALUE``) select a build
+    variant of the source, which only ``kernel_probe.py`` asks for."""
+    lib = _build.load("phi_update", defines)
     if lib.phi_delta_tiles_launch.argtypes is None:
         # pointers and the stream as c_void_p: ctypes would cut them to int
-        lib.phi_delta_tiles_launch.argtypes = [_vp] * 5 + [_i] * 5 + [_vp]
+        lib.phi_delta_tiles_launch.argtypes = ([_vp, _i] + [_vp] * 4
+                                               + [_i] * 4 + [_vp])
         lib.phi_delta_tiles_launch.restype = _i
         lib.phi_update_tiles_launch.argtypes = [_vp] * 4 + [_i] * 5 + [_vp]
         lib.phi_update_tiles_launch.restype = _i
+        lib.phi_delta_segment_tiles.restype = _i
     return lib
 
 
-def _check_tiles(tile_word, zs, token_mask):
-    dev = _build.require_cuda(tile_word, "the phi_update kernels",
-                              "ref.py")
+def segment_tiles() -> int:
+    """The most tiles a K2 segment holds, as the kernel was built."""
+    return int(_lib().phi_delta_segment_tiles())
+
+
+def _check_slots(first, zs, token_mask):
+    dev = _build.require_cuda(first, "the phi_update kernels", "ref.py")
     n, t = zs[0].shape
-    _build.check_tensor("tile_word", tile_word, torch.int32, (n,), dev)
     z_dtype = zs[0].dtype if zs[0].dtype in Z_DTYPES else Z_DTYPES
     for name, z in zip(("z_new", "z_old"), zs):
         _build.check_tensor(name, z, z_dtype, (n, t), dev)
@@ -51,29 +66,43 @@ def _check_tiles(tile_word, zs, token_mask):
     return dev, n, t
 
 
-def phi_delta_tiles(tile_word, z_new, z_old, token_mask, num_words: int,
+def phi_delta_tiles(segments, z_new, z_old, token_mask, num_words: int,
                     num_topics: int) -> torch.Tensor:
     """(V, K) int32: counts(z_new) - counts(z_old) per word row over the
-    masked tokens.  tile_word (n,) int32; z_new, z_old (n, t) int16 or int32
-    (the same); token_mask (n, t) bool.  Launches on the current stream and
-    does not synchronise."""
-    dev, n, t = _check_tiles(tile_word, (z_new, z_old), token_mask)
+    masked tokens.  segments (S, 4) int32 from ``ops.segment_table`` on the
+    tiling of z; z_new, z_old (n, t) int16 or int32 (the same);
+    token_mask (n, t) bool.  Launches on the current stream and does not
+    synchronise."""
+    out = delta_variant((), segments, z_new, z_old, token_mask, num_words,
+                        num_topics)
+    phi_delta_tiles.launches += 1
+    return out
+
+
+def delta_variant(defines, segments, z_new, z_old, token_mask, num_words,
+                  num_topics):
+    """``phi_delta_tiles`` through the build of the source with ``defines``
+    (``()``: the shipped one), without counting the launch."""
+    dev, n, t = _check_slots(segments, (z_new, z_old), token_mask)
+    _build.check_tensor("segments", segments, torch.int32,
+                        (segments.shape[0], 4), dev)
     out = torch.empty((num_words, num_topics), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib().phi_delta_tiles_launch(
-            tile_word.data_ptr(), z_new.data_ptr(), z_old.data_ptr(),
-            token_mask.data_ptr(), out.data_ptr(), n, t, num_words,
-            num_topics, z_new.element_size(), _build.current_stream(dev))
+        err = _lib(defines).phi_delta_tiles_launch(
+            segments.data_ptr(), segments.shape[0], z_new.data_ptr(),
+            z_old.data_ptr(), token_mask.data_ptr(), out.data_ptr(), t,
+            num_words, num_topics, z_new.element_size(),
+            _build.current_stream(dev))
     if err != 0:
         raise RuntimeError(f"phi_delta_tiles launch failed: CUDA error {err}")
-    phi_delta_tiles.launches += 1
     return out
 
 
 def phi_update_tiles(tile_word, z, token_mask, num_words: int,
                      num_topics: int) -> torch.Tensor:
     """(V, K) int32: counts(z) per word row over the masked tokens."""
-    dev, n, t = _check_tiles(tile_word, (z,), token_mask)
+    dev, n, t = _check_slots(tile_word, (z,), token_mask)
+    _build.check_tensor("tile_word", tile_word, torch.int32, (n,), dev)
     out = torch.empty((num_words, num_topics), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().phi_update_tiles_launch(

@@ -20,6 +20,51 @@ def _args(tile_word, token_mask, *zs):
             (token_mask != 0).contiguous())
 
 
+def segment_table(tile_word, tile_first, max_tiles: int) -> torch.Tensor:
+    """(S, 4) int32 rows ``(first tile, tiles, word, sole)``: the tiling cut
+    into segments of at most ``max_tiles`` consecutive tiles of one word,
+    in tile order, cut wherever the word changes or ``tile_first`` (may be
+    None) is set; ``sole`` is 1 where the word owns exactly one segment.
+    Every tile lies in exactly one segment; padding tiles (which alias the
+    last word) join its last run.  Built on the tiles' device, with one
+    host sync: build it once per tiling."""
+    n = tile_word.shape[0]
+    dev = tile_word.device
+    if n == 0:
+        return torch.zeros((0, 4), dtype=torch.int32, device=dev)
+    tw = tile_word.to(torch.int64)
+    cut = torch.ones(n, dtype=torch.bool, device=dev)
+    cut[1:] = tw[1:] != tw[:-1]
+    if tile_first is not None:
+        cut |= tile_first.to(device=dev, dtype=torch.bool)
+    starts = torch.nonzero(cut).flatten()
+    lens = torch.diff(starts, append=starts.new_tensor([n]))
+    per_run = (lens + max_tiles - 1) // max_tiles
+    run = torch.repeat_interleave(per_run)
+    k = (torch.arange(run.numel(), device=dev)
+         - (torch.cumsum(per_run, 0) - per_run)[run])
+    first = starts[run] + k * max_tiles
+    tiles = torch.clamp(lens[run] - k * max_tiles, max=max_tiles)
+    word = tw[first]
+    _, inverse, owned = torch.unique(word, return_inverse=True,
+                                     return_counts=True)
+    sole = (owned[inverse] == 1).to(torch.int64)
+    return torch.stack([first, tiles, word, sole], 1).to(
+        torch.int32).contiguous()
+
+
+def shard_segments(shard):
+    """K2's segment table for a shard on a CUDA device, built on first use
+    and kept with the shard (its tiling does not change across
+    iterations); None for a shard on the CPU, whose plain version needs
+    none.  The build syncs with the host once: ``fit`` calls this at
+    set-up, before its sync-guarded iterations."""
+    if shard.device.type != "cuda":
+        return None
+    return shard.cached("phi_delta_segments", lambda: segment_table(
+        shard.tile_word, shard.tile_first, kernel.segment_tiles()))
+
+
 def phi_update(tile_word, tile_first, z, token_mask, *, num_words: int,
                num_topics: int) -> torch.Tensor:
     """(V, K) int32 counts(z) per word row: a full rebuild of phi (K4)."""
@@ -31,12 +76,22 @@ def phi_update(tile_word, tile_first, z, token_mask, *, num_words: int,
 
 
 def phi_delta(tile_word, tile_first, z_old, z_new, token_mask, *,
-              num_words: int, num_topics: int) -> torch.Tensor:
+              num_words: int, num_topics: int,
+              segments: torch.Tensor | None = None) -> torch.Tensor:
     """Per-iteration phi DELTA (V, K) int32: counts(z_new) - counts(z_old)
     (K2).  The trainer adds it to the iteration-start phi, so that
-    ``phi_old + delta == phi_update(z_new)`` exactly."""
+    ``phi_old + delta == phi_update(z_new)`` exactly.
+
+    ``segments``: the kernel's ``segment_table`` of this tiling, built
+    once by the caller (``shard_segments``); required on CUDA tensors,
+    unused by the plain version."""
     tw, zn, zo, tm = _args(tile_word, token_mask, z_new, z_old)
     if zn.device.type == "cuda":
-        return kernel.phi_delta_tiles(tw, zn, zo, tm, num_words, num_topics)
+        if segments is None:
+            raise ValueError("phi_delta on CUDA tensors needs the tiling's "
+                             "segment table (segment_table or "
+                             "shard_segments, built once per tiling)")
+        return kernel.phi_delta_tiles(segments, zn, zo, tm, num_words,
+                                      num_topics)
     return ref.phi_delta_tiles_ref(tw, tile_first, zn, zo, tm, num_words,
                                    num_topics)

@@ -2,8 +2,10 @@
 of ``repro_torch.core.updates`` (the trainer's own update), as
 ``repro/kernels/phi_update/ref.py`` is for the Pallas kernels.  The CPU
 path of the port runs these; on the card they are what the CUDA kernels
-are held against.  ``tile_first`` only matters to the TPU kernels'
-block-revisit protocol and is accepted for their signature."""
+are held against.  A scatter-add needs no run structure, so these ignore
+``tile_first``; the kernels read it (the TPU kernels to keep a word's
+block across its run of tiles, the CUDA K2 through its segment table) and
+must give the same counts whatever it marks."""
 from __future__ import annotations
 
 from repro_torch.core import updates

@@ -30,6 +30,7 @@ from repro_torch.core import trainer
 from repro_torch.core.corpus import Corpus, TiledCorpusShard, tile_corpus
 from repro_torch.core.trainer import LDAConfig, LDAState, TrainResult
 from repro_torch.device import resolve_device
+from repro_torch.kernels.phi_update import ops as phi_ops
 
 
 def _synchronize(device: torch.device) -> None:
@@ -81,6 +82,9 @@ def fit(
     cfg = trainer.resolve_config(cfg, corpus)
     shard = (tile_corpus(corpus, 1, cfg.tile_tokens)[0] if shard is None
              else shard).to(dev)
+    # K2's segment table: built here, with its one host sync, and kept on
+    # the shard, so that no iteration (sync-guarded under sanitize) builds it
+    phi_ops.shard_segments(shard)
 
     mgr = fp = None
     if checkpoint_dir:

@@ -22,20 +22,37 @@ def dev():
     return torch.device("cuda:0")
 
 
-def case(K, dev, B=8, L=64, V=300, burn_in=3, samples=2, seed=0):
+def case(K, dev, B=8, L=64, V=300, burn_in=3, samples=2, seed=0,
+         empty_last=True, P=None):
     rng = np.random.default_rng(seed)
     phi = ((rng.random((V, K)) < 0.1)
            * rng.integers(1, 300, (V, K))).astype(np.int32)
     lens = rng.integers(1, L + 1, B)
-    lens[-1] = 0                                  # one all-padding doc
+    if empty_last:
+        lens[-1] = 0                              # one all-padding doc
     mask = (np.arange(L)[None] < lens[:, None]).astype(np.int32)
     args = (phi[rng.integers(0, V, (B, L))], phi.sum(0).astype(np.int32),
             np.array([50.0 / K, 0.01], np.float32),
             rng.random((B, burn_in + samples, L, 2), dtype=np.float32), mask,
             rng.integers(0, K, (B, L)).astype(np.int32))
     kw = dict(num_words_total=V, burn_in=burn_in, samples=samples,
-              ell_capacity=min(L, K))
+              ell_capacity=P or min(L, K))
     return [torch.from_numpy(a).to(dev) for a in args], kw
+
+
+def assert_fold_in_equal(args, kw):
+    """Kernel and plain version on the same inputs: equal theta sums,
+    sparse counts and final z (no float-order boundary is hit at these
+    sizes), the S-share sum within rtol 1e-5 (reduced in another order),
+    zeros for an all-padding doc."""
+    k = kernel.fold_in_docs(*args, **kw)
+    r = ref.fold_in_docs_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], r[0]) and torch.equal(k[1], r[1])
+    assert torch.equal(k[3], r[3])
+    torch.testing.assert_close(k[2], r[2], rtol=1e-5, atol=0)
+    empty = args[4].sum(1) == 0
+    assert int(k[0][empty].abs().sum()) == 0 and int(k[1][empty].sum()) == 0
 
 
 @pytest.mark.parametrize("K", [96, 256, 1024])
@@ -53,6 +70,73 @@ def test_kernel_matches_plain_version(dev, K):
     assert torch.equal(k[3], r[3])
     torch.testing.assert_close(k[2], r[2], rtol=1e-5, atol=0)
     assert int(k[0][-1].abs().sum()) == 0          # padding doc: zeros
+
+
+@pytest.mark.parametrize("shape", [
+    dict(B=1, empty_last=False),       # one doc: one cluster
+    dict(B=33),                        # more docs than 32
+    dict(L=60),                        # L not a multiple of a warp
+    dict(L=256, B=4),                  # the largest serving bucket
+    dict(P=8),                         # P below the docs' live topics
+])
+def test_kernel_shapes_match_plain_version(dev, shape):
+    args, kw = case(256, dev, seed=len(shape) + shape.get("B", 0)
+                    + shape.get("L", 0), **shape)
+    if "P" in shape:
+        live = [len(set(args[5][b][args[4][b] != 0].tolist()))
+                for b in range(args[5].shape[0])]
+        assert max(live) > kw["ell_capacity"]
+    assert_fold_in_equal(args, kw)
+
+
+def test_kernel_scalar_rows_match_plain_version(dev):
+    """K = 90: rows are not 16-byte vectors, and the search blocks are two
+    topics wide (45 of them)."""
+    args, kw = case(90, dev, seed=90)
+    assert_fold_in_equal(args, kw)
+
+
+def test_fold_in_draw_does_not_depend_on_bucket_or_slot(dev):
+    """The same documents (tokens, z0, uniforms) at L = 64 in a batch of
+    three and at L = 256 in a batch of 33, at other slots, get the same
+    bits: a token's draw depends on its row, the doc's theta and its own
+    uniforms, not on which CTA of the doc's cluster or which warp takes it.
+    The rows' p* spans ~1e8 inside every search block (counts of a million
+    beside topics that are heavy elsewhere), where the lanes' sums round
+    in different directions and the prefixes must still not decrease."""
+    K, V, n_sweeps = 256, 2, 4
+    rng = np.random.default_rng(5)
+    phi = np.zeros((V, K), np.int32)
+    heavy = rng.random(K) < 0.5
+    phi[0, heavy] = rng.integers(1, 1_000_000, int(heavy.sum()))
+    phi[1, ~heavy] = 1_000_000
+    lens = np.array([64, 37, 5])
+    words = rng.integers(0, V, (3, 64))
+    z0 = rng.integers(0, K, (3, 64)).astype(np.int32)
+    uni = rng.random((3, n_sweeps, 64, 2), dtype=np.float32)
+    hyper = np.array([50.0 / K, 0.01], np.float32)
+    kw = dict(num_words_total=V, burn_in=2, samples=2, ell_capacity=64)
+    outs = []
+    for B, L, slots in ((3, 64, [0, 1, 2]), (33, 256, [20, 3, 32])):
+        w = rng.integers(0, V, (B, L))
+        m = np.zeros((B, L), np.int32)
+        zz = rng.integers(0, K, (B, L)).astype(np.int32)
+        uu = rng.random((B, n_sweeps, L, 2), dtype=np.float32)
+        for d, b in enumerate(slots):
+            w[b, :64], zz[b, :64], uu[b, :, :64] = words[d], z0[d], uni[d]
+            m[b] = 0
+            m[b, :lens[d]] = 1
+        args = [torch.from_numpy(a).to(dev) for a in (
+            phi[w], phi.sum(0).astype(np.int32), hyper, uu, m, zz)]
+        k = kernel.fold_in_docs(*args, **kw)
+        torch.cuda.synchronize()
+        outs.append([o[slots].cpu() for o in k])
+    (t1, sp1, q1, z1), (t2, sp2, q2, z2) = outs
+    assert torch.equal(t1, t2) and torch.equal(sp1, sp2)
+    assert torch.equal(z1, z2[:, :64])
+    torch.testing.assert_close(q1, q2, rtol=1e-5, atol=0)   # summed in
+    # another grouping of the tokens
+    assert 0 < int(sp1.sum()) < int(lens.sum()) * 2   # both sides drawn
 
 
 def test_ops_dispatch_launches_on_cuda(dev):
@@ -272,8 +356,9 @@ def test_phi_kernels_exact(dev, z_dtype):
     z_new = torch.randint(0, K, z_old.shape, device=dev).to(z_dtype)
     first = torch.ones_like(tw, dtype=torch.bool)
     before = (k24.phi_delta_tiles.launches, k24.phi_update_tiles.launches)
+    seg = ops.segment_table(tw, first, k24.segment_tiles())
     d = ops.phi_delta(tw, first, z_old, z_new, mask, num_words=V + 3,
-                      num_topics=K)
+                      num_topics=K, segments=seg)
     full = ops.phi_update(tw, first, z_new, mask, num_words=V + 3,
                           num_topics=K)
     assert (k24.phi_delta_tiles.launches,
@@ -288,9 +373,69 @@ def test_phi_kernels_exact(dev, z_dtype):
     assert int(full[V:].abs().sum()) == 0         # rows no tile visits
 
 
+def segment_case(t, K, z_dtype, dev, seed=0):
+    """A tiling that has word 0 over 600 consecutive tiles (more than three
+    segments), words 1-15 a tile each, word 3 again after word 15 (its
+    tiles not contiguous), word 20 over two tiles and five padding tiles
+    that alias it with tile_first False and an all-false mask.  z_new
+    moves half the tokens, most of them to three hot topics (equal bins
+    in a warp); some tiles are partly padded."""
+    rng = np.random.default_rng(seed)
+    tw = np.r_[np.zeros(600), np.arange(1, 16), [3, 3], [20] * 7].astype(
+        np.int32)
+    n = len(tw)
+    tf = np.r_[True, tw[1:] != tw[:-1]]
+    tf[-5:] = False
+    mask = rng.random((n, t)) < 0.9
+    mask[-5:] = False
+    z_old = rng.integers(0, K, (n, t))
+    hot = rng.integers(0, 3, (n, t)) * (K // 3)
+    z_new = np.where(rng.random((n, t)) < 0.5,
+                     np.where(rng.random((n, t)) < 0.8, hot,
+                              rng.integers(0, K, (n, t))), z_old)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return (T(tw), T(tf), T(z_old).to(z_dtype), T(z_new).to(z_dtype),
+            T(mask))
+
+
+@pytest.mark.parametrize("z_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("t,K", [(64, 1024), (12, 96), (16, 90)])
+def test_phi_delta_segments_exact(dev, z_dtype, t, K):
+    """K2 on a segment table equals its plain version exactly: a word over
+    several segments (atomics), single-tile words (plain stores), a word
+    whose tiles are not contiguous and padding tiles that add nothing;
+    t = 64 and 16 read z and the mask as vectors, t = 12 slot by slot;
+    K = 90 flushes bin by bin, not by 32-byte sectors."""
+    from repro_torch.kernels.phi_update import kernel as k24, ops, ref
+
+    tw, tf, z_old, z_new, mask = segment_case(t, K, z_dtype, dev)
+    V = 24                                        # rows 21-23: no tile
+    seg = ops.segment_table(tw, tf, k24.segment_tiles())
+    assert k24.segment_tiles() == 128
+    words = seg[:, 2].tolist()
+    assert words.count(0) == 5 and words.count(3) == 2
+    before = k24.phi_delta_tiles.launches
+    d = ops.phi_delta(tw, tf, z_old, z_new, mask, num_words=V, num_topics=K,
+                      segments=seg)
+    assert k24.phi_delta_tiles.launches == before + 1
+    r = ref.phi_delta_tiles_ref(tw, tf, z_new, z_old, mask, V, K)
+    torch.cuda.synchronize()
+    assert torch.equal(d, r)
+    assert int(r[0].abs().sum()) > 0 and int(d[21:].abs().sum()) == 0
+    # a table built without tile_first cuts at word changes alone
+    seg = ops.segment_table(tw, None, k24.segment_tiles())
+    assert torch.equal(ops.phi_delta(tw, None, z_old, z_new, mask,
+                                     num_words=V, num_topics=K,
+                                     segments=seg), r)
+    # on the card the table is required: it is built once per tiling
+    with pytest.raises(ValueError, match="segment table"):
+        ops.phi_delta(tw, tf, z_old, z_new, mask, num_words=V, num_topics=K)
+
+
 def test_training_wrappers_reject_bad_inputs(dev):
     from repro_torch.kernels.lda_sample import kernel as k1, ops as k1_ops
     from repro_torch.kernels.phi_update import kernel as k24
+    from repro_torch.kernels.phi_update import ops as phi_ops
 
     args, kw = sweep_case(96, dev, seed=3)
     kw = dict(kw, ell_live=k1_ops.live_lengths(args[6]))
@@ -315,10 +460,15 @@ def test_training_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="CUDA kernel"):
         k1.lda_sample_tiles(*(a.cpu() for a in args), **kw)
     tw, mask, z = args[0], args[2], args[3]
+    seg = phi_ops.segment_table(tw, None, k24.segment_tiles())
     with pytest.raises(ValueError, match="dtype"):
         k24.phi_update_tiles(tw, z.to(torch.int64), mask, 40, 96)
     with pytest.raises(ValueError, match="contiguous"):
-        k24.phi_delta_tiles(tw, z.t().contiguous().t(), z, mask, 40, 96)
+        k24.phi_delta_tiles(seg, z.t().contiguous().t(), z, mask, 40, 96)
+    with pytest.raises(ValueError, match="segments"):
+        k24.phi_delta_tiles(seg.to(torch.int64), z, z, mask, 40, 96)
+    with pytest.raises(ValueError, match="segments"):
+        k24.phi_delta_tiles(seg[:, :3].contiguous(), z, z, mask, 40, 96)
     with pytest.raises(ValueError, match="CUDA kernel"):
         k24.phi_update_tiles(tw.cpu(), z.cpu(), mask.cpu(), 40, 96)
 

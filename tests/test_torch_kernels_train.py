@@ -354,3 +354,82 @@ def test_ops_run_plain_versions_on_cpu_tensors():
         args[0], None, z, args[2], 60, 32))
     assert (k1.lda_sample_tiles.launches, k24.phi_delta_tiles.launches,
             k24.phi_update_tiles.launches) == before
+
+
+def segments_by_walk(tile_word, tile_first, max_tiles):
+    """The segment table by a walk over the tiles: a new segment where the
+    word changes, tile_first is set, or the segment is full."""
+    rows = []
+    for i, (w, f) in enumerate(zip(tile_word, tile_first)):
+        if rows and not f and rows[-1][2] == w and rows[-1][1] < max_tiles:
+            rows[-1][1] += 1
+        else:
+            rows.append([i, 1, int(w), 0])
+    owned = np.bincount([r[2] for r in rows])
+    for r in rows:
+        r[3] = int(owned[r[2]] == 1)
+    return np.asarray(rows, np.int32).reshape(-1, 4)
+
+
+@pytest.mark.parametrize("max_tiles", [1, 3, 16])
+def test_segment_table_matches_reference_tiling(max_tiles):
+    """K2's segment table on the JAX package's tiling of a Zipf corpus
+    padded with pad_tiles_to: heavy words span several segments, most
+    words one, and the padding tiles (the last word, tile_first False, an
+    all-false mask) join the last word's run."""
+    from repro.core.corpus import tile_shard as jtile_shard
+    from repro.data.synthetic import zipf_corpus
+
+    corpus = zipf_corpus(num_docs=60, num_words=200, avg_doc_len=50, seed=3)
+    n = jtile_shard(corpus, np.arange(60), 8).tile_word.shape[0]
+    sh = jtile_shard(corpus, np.arange(60), 8, pad_tiles_to=n + 7)
+    tw, tf = np.array(sh.tile_word), np.array(sh.tile_first)
+    assert not tf[n:].any() and (tw[n:] == tw[n - 1]).all()
+    seg = tphi_ops.segment_table(torch.from_numpy(tw), torch.from_numpy(tf),
+                                 max_tiles)
+    assert seg.dtype == torch.int32 and seg.is_contiguous()
+    np.testing.assert_array_equal(seg.numpy(),
+                                  segments_by_walk(tw, tf, max_tiles))
+    first, tiles, word, sole = seg.numpy().T
+    covered = np.concatenate([np.arange(f, f + c) for f, c in
+                              zip(first, tiles)])
+    np.testing.assert_array_equal(covered, np.arange(n + 7))
+    assert (tiles <= max_tiles).all()
+    assert (tw[covered] == np.repeat(word, tiles)).all()
+    if max_tiles == 16:   # the heaviest word spans several segments
+        assert (word == tw[0]).sum() > 1 and not sole[word == tw[0]].any()
+        assert sole.sum() > len(seg) // 2
+
+
+def test_segment_table_cuts_where_the_word_changes():
+    """A word whose tiles are not contiguous owns two segments (so neither
+    is sole), as does a run that tile_first splits; an empty tiling gives
+    an empty table."""
+    tw = torch.tensor([4, 4, 2, 4, 7, 7, 7, 9], dtype=torch.int32)
+    tf = torch.tensor([1, 0, 1, 1, 1, 0, 1, 1], dtype=torch.bool)
+    seg = tphi_ops.segment_table(tw, tf, 2)
+    assert seg.tolist() == [[0, 2, 4, 0], [2, 1, 2, 1], [3, 1, 4, 0],
+                            [4, 2, 7, 0], [6, 1, 7, 0], [7, 1, 9, 1]]
+    assert tphi_ops.segment_table(tw, None, 8).tolist() == [
+        [0, 2, 4, 0], [2, 1, 2, 1], [3, 1, 4, 0], [4, 3, 7, 1],
+        [7, 1, 9, 1]]
+    assert tuple(tphi_ops.segment_table(tw[:0], None, 8).shape) == (0, 4)
+
+
+def test_shard_keeps_its_segment_table():
+    """The segment table is built once per shard (the tiling does not
+    change across iterations); a CPU shard needs none, and a copy made
+    by ``to`` starts without the first one's tables."""
+    from repro_torch.core.corpus import Corpus as TCorpus
+    from repro_torch.core.corpus import tile_shard
+
+    corpus = lda_corpus(num_docs=12, num_words=20, num_topics=3,
+                        avg_doc_len=15, seed=2)
+    s = tile_shard(TCorpus(corpus.doc_ids, corpus.word_ids, corpus.num_docs,
+                           corpus.num_words), np.arange(12), tile_tokens=8)
+    assert tphi_ops.shard_segments(s) is None
+    calls = []
+    build = lambda: calls.append(1) or len(calls)  # noqa: E731
+    assert s.cached("t", build) == 1 and s.cached("t", build) == 1
+    assert calls == [1]
+    assert s.to("cpu").cached("t", build) == 2

@@ -34,7 +34,7 @@ import importlib, sys
 sys.modules["jax"] = None
 sys.path.insert(0, {str(ROOT / "src")!r})
 sys.path.insert(0, {str(ROOT)!r})
-for name in {_port_modules()!r} + ["chip_smoke", "k1_probe"]:
+for name in {_port_modules()!r} + ["chip_smoke", "kernel_probe"]:
     importlib.import_module(name)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and (m == "repro" or m.startswith("repro.")
@@ -52,7 +52,7 @@ print("ok", len({_port_modules()!r}))
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "k1_probe.py"]))
+    + ["chip_smoke.py", "kernel_probe.py"]))
 def test_no_jax_or_repro_imports_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -120,14 +120,15 @@ def test_chip_smoke_refuses_without_cuda():
 
 
 def test_k1_probe_refuses_without_cuda():
-    """k1_probe.py, which times build variants of K1, needs a card too."""
+    """kernel_probe.py (k1_probe.py before it timed K2 and K3 too), which
+    times build variants of the kernels, needs a card too."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    res = subprocess.run([sys.executable, str(ROOT / "k1_probe.py")],
+    res = subprocess.run([sys.executable, str(ROOT / "kernel_probe.py")],
                          capture_output=True, text=True, cwd=str(ROOT),
                          timeout=300)
     assert res.returncode != 0
-    assert "k1_probe" not in res.stdout
+    assert "probe" not in res.stdout
 
 
 def test_build_variants_get_their_own_library():
