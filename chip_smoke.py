@@ -32,15 +32,18 @@ L in {32, 64, 128, 256}; 8 burn-in + 4 sample sweeps):
 Training (``configs/lda_nytimes.CONFIG`` on ``nytimes_like(1.0)``:
 D = 299,752 docs, V = 101,636, ~99.5M tokens, Zipf 1.1):
 
-7. host preparation: corpus, tiling, move to the card, K2's segment table
-   (built once per tiling); the ELL's element type (int16 where K and the
-   longest document allow, C7);
+7. host preparation: corpus, tiling, move to the card, K2's and K4's
+   segment table and K4's list of rows to zero (built once per tiling);
+   the ELL's element type (int16 where K and the longest document allow,
+   C7);
 8. the sweep kernel (K1) against its plain version: one sweep from the
    initial state and the same uniforms on the heaviest word's first 1024
    tiles and the last 1024 (tail) tiles, at full K and V, on the ELL the
    trainer builds (``trainer.theta_and_ell``);
 9. the count kernels (K2 phi delta, K4 phi rebuild) against their plain
-   versions at full V x K, after one full-width K1 sweep;
+   versions at full V x K, after one full-width K1 sweep, K4 also into
+   memory the allocator has just freed from a tensor of -1 (a row K4
+   neither writes whole nor zeroes shows there);
 10. K1, K2 and K4 times at full width (``time_ms``, 20 launches; the
     plain K1 3), each with its bound and, for K2 and K4, one
     ``index_add_`` as the library yardstick; K1 also with the bytes its
@@ -68,7 +71,8 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
 * K1, one sweep on the initial and on the trained state: draws differ on
   <= 1e-3 of real tokens, and the sparse share and the mean S/(S+Q) agree
   within 1e-3 absolute;
-* K2 and K4: equal to their plain versions (integer counts, exact);
+* K2 and K4: equal to their plain versions (integer counts, exact), K4
+  also into memory last filled with -1, and phi_old + K2 == K4(z_new);
 * serving: every theta sums to 1 (atol 1e-4), the planted major topic is
   recovered on >= 90% of documents in every burst, every answer after the
   swap carries the new model version, and K3 was launched;
@@ -346,11 +350,17 @@ def k1_design(args, ms, tiles_per_cta):
                 per_token_int32_bytes=per_token * 8 + common + n * K * 4)
 
 
-def count_bytes_and_ops(n, t, z_bytes, V, K, real, delta: bool):
-    """K2 / K4: tile words, z (and z_old) and the mask read once, the
-    (V, K) int32 output written once; one integer add per real token and
-    z array."""
-    nbytes = n * 4 + n * t * (z_bytes * (2 if delta else 1) + 1) + V * K * 4
+def table_bytes(*tables) -> int:
+    """The bytes of the tables a count kernel reads besides the tokens."""
+    return sum(x.numel() * x.element_size() for x in tables)
+
+
+def count_bytes_and_ops(n, t, z_bytes, V, K, real, delta: bool, tables):
+    """K2 / K4: z (and z_old) and the mask read once, the segment table (and
+    K4's list of rows to zero: ``tables`` bytes) read once, the (V, K)
+    int32 output written once; one integer add per real token and z
+    array."""
+    nbytes = n * t * (z_bytes * (2 if delta else 1) + 1) + tables + V * K * 4
     return nbytes, real * (2 if delta else 1)
 
 
@@ -487,9 +497,13 @@ def train_phases(card: str, scale: float, iters: int,
     torch.cuda.synchronize()
     t_h2d = time.perf_counter() - t0
     t0 = time.perf_counter()
-    seg = phi_ops.shard_segments(shard)      # K2's table, once per tiling
+    seg = phi_ops.shard_segments(shard)      # K2's and K4's table, once
     torch.cuda.synchronize()
     t_seg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = phi_ops.shard_rows_to_zero(shard)  # K4's rows to zero, once
+    torch.cuda.synchronize()
+    t_rows = time.perf_counter() - t0
     n, t = shard.token_doc.shape
     V, K, P = corpus.num_words, cfg.num_topics, cfg.ell_capacity
     nb, bw = K // pick_search_block(K), pick_search_block(K)
@@ -500,7 +514,8 @@ def train_phases(card: str, scale: float, iters: int,
          corpus_s=t_corpus, tiling_s=t_tile, to_device_s=t_h2d,
          k2_segments=int(seg.shape[0]),
          k2_sole_segments=int(seg[:, 3].sum()),
-         k2_segment_tiles=k24.segment_tiles(), k2_table_s=t_seg)
+         k2_segment_tiles=k24.segment_tiles(), k2_table_s=t_seg,
+         k4_rows_to_zero=int(rows.shape[0]), k4_rows_s=t_rows)
 
     # -- 8. K1 against its plain version on heavy + tail tiles ---------------
     state0 = trainer.init_state(cfg, shard)
@@ -517,19 +532,35 @@ def train_phases(card: str, scale: float, iters: int,
     tw, tf, tm = shard.tile_word, shard.tile_first, shard.token_mask
     dk = k24.phi_delta_tiles(seg, z1, state0.z, tm, V, K)
     dr = k24_ref.phi_delta_tiles_ref(tw, tf, z1, state0.z, tm, V, K)
-    uk = k24.phi_update_tiles(tw, z1, tm, V, K)
     ur = k24_ref.phi_update_tiles_ref(tw, tf, z1, tm, V, K)
+    uk = k24.phi_update_tiles(seg, rows, z1, tm, V, K)
+    torch.cuda.synchronize()
+    k4_err = int((uk - ur).abs().max())
+    update_equal = torch.equal(uk, ur)
+    # K4 writes rows it does not zero: into memory the allocator has just
+    # freed from a tensor of -1, a row it failed to own shows as -1s
+    del uk
+    torch.cuda.empty_cache()
+    junk = torch.full((V, K), -1, dtype=torch.int32, device=dev)
+    junk_ptr = junk.data_ptr()
+    del junk
+    uk = k24.phi_update_tiles(seg, rows, z1, tm, V, K)
+    reused = uk.data_ptr() == junk_ptr
     torch.cuda.synchronize()
     k2_err = int((dk - dr).abs().max())
-    k4_err = int((uk - ur).abs().max())
+    k4_err = max(k4_err, int((uk - ur).abs().max()))
     emit("train_counts_vs_plain", V=V, K=K, delta_equal=torch.equal(dk, dr),
-         update_equal=torch.equal(uk, ur),
+         update_equal=update_equal,
+         update_equal_in_reused_memory=torch.equal(uk, ur),
+         reused_memory=reused,
          advance_exact=torch.equal(state0.phi_vk + dk, uk),
          moved_tokens=int(((z1 != state0.z) & tm).sum()),
          k2_max_abs_err=k2_err, k4_max_abs_err=k4_err)
-    if not (torch.equal(dk, dr) and torch.equal(uk, ur)
+    if not (torch.equal(dk, dr) and update_equal and torch.equal(uk, ur)
             and torch.equal(state0.phi_vk + dk, uk)):
         raise AssertionError("K2 / K4 differ from their plain versions")
+    if not reused:
+        raise AssertionError("K4's -1 check did not get the freed memory")
     del dk, dr, uk, ur
 
     # -- 10. times at full width ---------------------------------------------
@@ -557,14 +588,15 @@ def train_phases(card: str, scale: float, iters: int,
             tw, tf, z1, state0.z, tm, V, K)),
         library_ms=time_ms(lambda: library(idx2, val2)),
         **bound(*count_bytes_and_ops(n, t, z1.element_size(), V, K, real_tok,
-                                     True), INT32_OPS))
+                                     True, table_bytes(seg)), INT32_OPS))
     timing["k4"] = dict(
-        ms=time_ms(lambda: k24.phi_update_tiles(tw, z1, tm, V, K)),
+        ms=time_ms(lambda: k24.phi_update_tiles(seg, rows, z1, tm, V, K)),
         plain_ms=time_ms(lambda: k24_ref.phi_update_tiles_ref(
             tw, tf, z1, tm, V, K)),
         library_ms=time_ms(lambda: library(new_flat, ones)),
         **bound(*count_bytes_and_ops(n, t, z1.element_size(), V, K, real_tok,
-                                     False), INT32_OPS))
+                                     False, table_bytes(seg, rows)),
+                INT32_OPS))
     group = k1.tiles_per_cta()
     emit("train_timing", card=card, state="initial", **timing,
          k1_design=k1_design(full, timing["k1"]["ms"], group))
@@ -581,7 +613,8 @@ def train_phases(card: str, scale: float, iters: int,
     res = fit(corpus, lda_nytimes.CONFIG, iters, device=dev, shard=shard,
               eval_every=1)
     st = res.state
-    rebuilt = phi_ops.phi_update(tw, tf, st.z, tm, num_words=V, num_topics=K)
+    rebuilt = phi_ops.phi_update(tw, tf, st.z, tm, num_words=V, num_topics=K,
+                                 segments=seg, zero_rows=rows)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {f.__name__: f.launches for f in counters}

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's hand-written kernels spend their time: build variants of
 the training sweep kernel K1 (``lda_sample.cu``), the phi-delta kernel K2
-(``phi_update.cu``) and the fold-in kernel K3 (``fold_in.cu``), timed on
-chip_smoke's two cells, one card.
+and the phi-rebuild kernel K4 (``phi_update.cu``) and the fold-in kernel K3
+(``fold_in.cu``), timed on chip_smoke's two cells, one card.
 
     python3 kernel_probe.py
     python3 kernel_probe.py --smoke-of DIR   # DIR's chip_smoke.py, timed
@@ -18,10 +18,12 @@ started together:
   (``LDA_SAMPLE_PROBE=1``: no ELL row read, each run's scan and draws go
   over a row already in shared memory); ``no_runs`` (``LDA_SAMPLE_PROBE=2``:
   only the per-tile work);
-* K2: ``shipped``; ``no_flush`` (``PHI_UPDATE_PROBE=1``: the histograms are
-  built but nothing is written to the (V, K) output besides its memset);
-  ``no_hist`` (``PHI_UPDATE_PROBE=2``: the tokens are read, nothing is
-  counted or written);
+* K2 and K4 (one source): ``shipped``; ``no_flush``
+  (``PHI_UPDATE_PROBE=1``: the histograms are built but nothing is written
+  to the (V, K) output besides its zeroing: K2's memset, K4's listed
+  rows); ``no_hist`` (``PHI_UPDATE_PROBE=2``: the tokens are read, nothing
+  is counted or written); for K4 also ``zero_only``
+  (``PHI_UPDATE_PROBE=3``: the zeroing launch of the listed rows alone);
 * K3: ``shipped``; ``no_draws`` (``FOLD_IN_PROBE=2``: the sweeps count
   theta, select the ELL and recount, but draw no token);
   ``no_pass_no_draws`` (``FOLD_IN_PROBE=3``: besides, no per-doc pass over
@@ -32,8 +34,8 @@ started together:
 
 Timed with ``chip_smoke.time_ms`` (20 launches back to back) on the same
 inputs as chip_smoke: K3 at each serving bucket (B = 32, planted
-NYTimes-width model), K1 and K2 on the training cell's initial state and
-on its state after 10 iterations.  One JSON line per kernel and state
+NYTimes-width model), K1, K2 and K4 on the training cell's initial state
+and on its state after 10 iterations.  One JSON line per kernel and state
 gives the times and their differences.  The probe builds compute wrong
 results; only their times are used.  Exits non-zero, with no result line,
 without a card.
@@ -58,13 +60,14 @@ K2_VARIANTS = {
     "no_flush": ("PHI_UPDATE_PROBE=1",),
     "no_hist": ("PHI_UPDATE_PROBE=2",),
 }
+K4_VARIANTS = dict(K2_VARIANTS, zero_only=("PHI_UPDATE_PROBE=3",))
 K3_VARIANTS = {
     "shipped": (),
     "no_draws": ("FOLD_IN_PROBE=2",),
     "no_pass_no_draws": ("FOLD_IN_PROBE=3",),
 }
 BUILDS = ([("lda_sample", d) for d in K1_VARIANTS.values()]
-          + [("phi_update", d) for d in K2_VARIANTS.values()]
+          + [("phi_update", d) for d in K4_VARIANTS.values()]
           + [("fold_in", d) for d in K3_VARIANTS.values()])
 
 
@@ -100,8 +103,32 @@ def k2_report(card, state, shard, z_new, z_old, V, K):
             hist_ms=ms["no_flush"] - ms["no_hist"],
             read_and_launch_ms=ms["no_hist"],
             bound=cs.bound(*cs.count_bytes_and_ops(
-                n, t, z_new.element_size(), V, K, shard.num_tokens, True),
-                cs.INT32_OPS))
+                n, t, z_new.element_size(), V, K, shard.num_tokens, True,
+                cs.table_bytes(seg)), cs.INT32_OPS))
+
+
+def k4_report(card, state, shard, z, V, K):
+    import torch
+
+    from repro_torch.kernels.phi_update import kernel as k24
+    from repro_torch.kernels.phi_update import ops as phi_ops
+
+    tm = shard.token_mask
+    seg = phi_ops.shard_segments(shard)
+    rows = phi_ops.shard_rows_to_zero(shard)
+    ms = {name: cs.time_ms(lambda d=d: k24.update_variant(
+        d, seg, rows, z, tm, V, K)) for name, d in K4_VARIANTS.items()}
+    n, t = z.shape
+    out = torch.empty((V, K), dtype=torch.int32, device=z.device)
+    cs.emit("k4_probe", card=card, state=state, ms=ms,
+            memset_ms=cs.time_ms(out.zero_), zeroed_rows=int(rows.shape[0]),
+            flush_ms=ms["shipped"] - ms["no_flush"],
+            hist_ms=ms["no_flush"] - ms["no_hist"],
+            read_zero_and_launch_ms=ms["no_hist"],
+            zero_launch_ms=ms["zero_only"],
+            bound=cs.bound(*cs.count_bytes_and_ops(
+                n, t, z.element_size(), V, K, shard.num_tokens, False,
+                cs.table_bytes(seg, rows)), cs.INT32_OPS))
 
 
 def k3_report(card):
@@ -241,6 +268,7 @@ def main() -> int:
         k1_report(card, state_name, args, kw, live)
         z_new = k1.lda_sample_tiles(*args, ell_live=live, **kw)[0]
         k2_report(card, state_name, shard, z_new, st.z, V, K)
+        k4_report(card, state_name, shard, z_new, V, K)
         del args, live, z_new, st
         torch.cuda.empty_cache()
     print(card, flush=True)

@@ -3,22 +3,26 @@
 
 Replace ``repro/kernels/phi_update/kernel.py::phi_delta_tiles`` (K2, the
 trainer's per-iteration phi delta) and ``::phi_update_tiles`` (K4, a full
-rebuild of phi from z), the Pallas TPU kernels.  Both add into a zeroed
-(V, K) int32 output with integer adds, exact in any order, so rows that no
-tile visits stay 0.
+rebuild of phi from z), the Pallas TPU kernels, with one kernel body in
+two modes: a delta, and a full count (a delta with no z_old in which every
+real token counts).  Every add is an integer add, exact in any order, and
+rows that no tile visits are 0.
 
-K2 reads the run structure that the TPU kernel reads from ``tile_first``
+Both read the run structure that the TPU kernels read from ``tile_first``
 (a word's output block kept across its run of tiles) from a segment table
 (``ops.segment_table``): stretches of at most ``segment_tiles()``
 consecutive tiles of one word, cut where the word changes or
 ``tile_first`` is set.  One warp reduces a segment in its own shared K-bin
 histogram and flushes it once, with plain stores where the word owns one
 segment and with atomics where it owns several; padding tiles have an
-all-false mask and add nothing.  K4 keeps one CTA per tile, a shared
-histogram flushed with atomics, and reads ``tile_word`` only.
+all-false mask and add nothing.  K2 zeroes its whole output first.  K4's
+output is phi itself, so a sole word's segment writes its whole row, zeros
+included, and K4 zeroes first only the rows listed by
+``ops.rows_to_zero``: each row of the output is written once.
 
-What bounds them: bytes — reading z (int16 or int32), the mask and the tile
-words once and writing the (V, K) output once; see the source note.
+What bounds them: bytes — reading z (int16 or int32; twice for K2), the
+mask and the segment table once and writing the (V, K) output once; see
+the source note.
 
 Built with ``nvcc`` for ``sm_90a`` at first launch (``kernels/_build.py``)
 and bound with ctypes.  The wrappers refuse CPU tensors: ``ops.py`` sends
@@ -45,14 +49,16 @@ def _lib(defines: tuple[str, ...] = ()):
         lib.phi_delta_tiles_launch.argtypes = ([_vp, _i] + [_vp] * 4
                                                + [_i] * 4 + [_vp])
         lib.phi_delta_tiles_launch.restype = _i
-        lib.phi_update_tiles_launch.argtypes = [_vp] * 4 + [_i] * 5 + [_vp]
+        lib.phi_update_tiles_launch.argtypes = ([_vp, _i, _vp, _i]
+                                                + [_vp] * 3 + [_i] * 4
+                                                + [_vp])
         lib.phi_update_tiles_launch.restype = _i
         lib.phi_delta_segment_tiles.restype = _i
     return lib
 
 
 def segment_tiles() -> int:
-    """The most tiles a K2 segment holds, as the kernel was built."""
+    """The most tiles a segment holds, as the kernels were built."""
     return int(_lib().phi_delta_segment_tiles())
 
 
@@ -64,6 +70,11 @@ def _check_slots(first, zs, token_mask):
         _build.check_tensor(name, z, z_dtype, (n, t), dev)
     _build.check_tensor("token_mask", token_mask, torch.bool, (n, t), dev)
     return dev, n, t
+
+
+def _check_segments(segments, dev):
+    _build.check_tensor("segments", segments, torch.int32,
+                        (segments.shape[0], 4), dev)
 
 
 def phi_delta_tiles(segments, z_new, z_old, token_mask, num_words: int,
@@ -84,8 +95,7 @@ def delta_variant(defines, segments, z_new, z_old, token_mask, num_words,
     """``phi_delta_tiles`` through the build of the source with ``defines``
     (``()``: the shipped one), without counting the launch."""
     dev, n, t = _check_slots(segments, (z_new, z_old), token_mask)
-    _build.check_tensor("segments", segments, torch.int32,
-                        (segments.shape[0], 4), dev)
+    _check_segments(segments, dev)
     out = torch.empty((num_words, num_topics), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _lib(defines).phi_delta_tiles_launch(
@@ -98,20 +108,41 @@ def delta_variant(defines, segments, z_new, z_old, token_mask, num_words,
     return out
 
 
-def phi_update_tiles(tile_word, z, token_mask, num_words: int,
+def phi_update_tiles(segments, zero_rows, z, token_mask, num_words: int,
                      num_topics: int) -> torch.Tensor:
-    """(V, K) int32: counts(z) per word row over the masked tokens."""
-    dev, n, t = _check_slots(tile_word, (z,), token_mask)
-    _build.check_tensor("tile_word", tile_word, torch.int32, (n,), dev)
+    """(V, K) int32: counts(z) per word row over the masked tokens.
+    segments (S, 4) int32 from ``ops.segment_table`` on the tiling of z;
+    zero_rows (R,) int32 from ``ops.rows_to_zero(segments, num_words)``:
+    the rows that no sole segment writes whole (a row list made for
+    another ``num_words`` leaves rows unset); z (n, t) int16 or int32;
+    token_mask (n, t) bool.  Launches on the current stream and does not
+    synchronise."""
+    out = update_variant((), segments, zero_rows, z, token_mask, num_words,
+                         num_topics)
+    phi_update_tiles.launches += 1
+    return out
+
+
+def update_variant(defines, segments, zero_rows, z, token_mask, num_words,
+                   num_topics):
+    """``phi_update_tiles`` through the build of the source with
+    ``defines`` (``()``: the shipped one), without counting the launch."""
+    dev, n, t = _check_slots(segments, (z,), token_mask)
+    _check_segments(segments, dev)
+    _build.check_tensor("zero_rows", zero_rows, torch.int32,
+                        (zero_rows.shape[0],), dev)
+    if zero_rows.shape[0] > num_words:
+        raise ValueError(f"zero_rows lists {zero_rows.shape[0]} rows, more "
+                         f"than num_words = {num_words}")
     out = torch.empty((num_words, num_topics), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = _lib().phi_update_tiles_launch(
-            tile_word.data_ptr(), z.data_ptr(), token_mask.data_ptr(),
-            out.data_ptr(), n, t, num_words, num_topics, z.element_size(),
+        err = _lib(defines).phi_update_tiles_launch(
+            segments.data_ptr(), segments.shape[0], zero_rows.data_ptr(),
+            zero_rows.shape[0], z.data_ptr(), token_mask.data_ptr(),
+            out.data_ptr(), t, num_words, num_topics, z.element_size(),
             _build.current_stream(dev))
     if err != 0:
         raise RuntimeError(f"phi_update_tiles launch failed: CUDA error {err}")
-    phi_update_tiles.launches += 1
     return out
 
 

@@ -3,6 +3,9 @@
 
 Both dispatch on the tensors' device: CUDA tensors go to the hand-written
 kernels (``kernel.py``), CPU tensors to their plain versions (``ref.py``).
+The kernels read the tiling's run structure from a segment table
+(``segment_table``) and K4 also the rows it zeroes (``rows_to_zero``),
+each built once per tiling.
 There is no fallback: a failed build or launch raises.  The contract holds
 on both: rows that no tile visits are zero.
 """
@@ -53,9 +56,21 @@ def segment_table(tile_word, tile_first, max_tiles: int) -> torch.Tensor:
         torch.int32).contiguous()
 
 
+def rows_to_zero(segments, num_words: int) -> torch.Tensor:
+    """(R,) int32, ascending: the rows of a (num_words, K) count that no
+    sole segment of ``segments`` writes whole, so that K4 zeroes them
+    first: the rows of words that own several segments (their segments add
+    into them) and the rows that no segment names (words without tiles,
+    and ``num_words`` beyond the tiles' words).  Built on the table's
+    device, with one host sync: build it once per tiling."""
+    sole = torch.zeros(num_words, dtype=torch.bool, device=segments.device)
+    sole[segments[:, 2][segments[:, 3] != 0].long()] = True
+    return torch.nonzero(~sole).flatten().to(torch.int32)
+
+
 def shard_segments(shard):
-    """K2's segment table for a shard on a CUDA device, built on first use
-    and kept with the shard (its tiling does not change across
+    """K2's and K4's segment table for a shard on a CUDA device, built on
+    first use and kept with the shard (its tiling does not change across
     iterations); None for a shard on the CPU, whose plain version needs
     none.  The build syncs with the host once: ``fit`` calls this at
     set-up, before its sync-guarded iterations."""
@@ -65,12 +80,35 @@ def shard_segments(shard):
         shard.tile_word, shard.tile_first, kernel.segment_tiles()))
 
 
+def shard_rows_to_zero(shard):
+    """K4's ``rows_to_zero`` for a shard on a CUDA device and its
+    ``num_words`` rows, built on first use and kept with the shard; None
+    for a shard on the CPU."""
+    if shard.device.type != "cuda":
+        return None
+    return shard.cached("phi_rebuild_zero_rows", lambda: rows_to_zero(
+        shard_segments(shard), shard.num_words))
+
+
 def phi_update(tile_word, tile_first, z, token_mask, *, num_words: int,
-               num_topics: int) -> torch.Tensor:
-    """(V, K) int32 counts(z) per word row: a full rebuild of phi (K4)."""
+               num_topics: int, segments: torch.Tensor | None = None,
+               zero_rows: torch.Tensor | None = None) -> torch.Tensor:
+    """(V, K) int32 counts(z) per word row: a full rebuild of phi (K4).
+
+    ``segments`` and ``zero_rows``: the kernel's ``segment_table`` of this
+    tiling and its ``rows_to_zero`` for ``num_words``, kept by the caller
+    (``shard_segments``, ``shard_rows_to_zero``).  On CUDA tensors the
+    ones not given are built here, with a host sync each: K4 runs once a
+    training run, outside the sync-guarded iterations.  The plain version
+    uses neither."""
     tw, zz, tm = _args(tile_word, token_mask, z)
     if zz.device.type == "cuda":
-        return kernel.phi_update_tiles(tw, zz, tm, num_words, num_topics)
+        if segments is None:
+            segments = segment_table(tw, tile_first, kernel.segment_tiles())
+        if zero_rows is None:
+            zero_rows = rows_to_zero(segments, num_words)
+        return kernel.phi_update_tiles(segments, zero_rows, zz, tm,
+                                       num_words, num_topics)
     return ref.phi_update_tiles_ref(tw, tile_first, zz, tm, num_words,
                                     num_topics)
 

@@ -346,8 +346,14 @@ def test_lda_sample_draw_does_not_depend_on_run_length(dev):
         assert torch.equal(a[perm], b)
 
 
+def minus_ones(*shape, dtype, device):
+    """A stand-in for torch.empty: memory last filled with -1."""
+    return torch.full(shape[0] if len(shape) == 1 else shape, -1,
+                      dtype=dtype, device=device)
+
+
 @pytest.mark.parametrize("z_dtype", [torch.int16, torch.int32])
-def test_phi_kernels_exact(dev, z_dtype):
+def test_phi_kernels_exact(dev, z_dtype, monkeypatch):
     from repro_torch.kernels.phi_update import kernel as k24, ops, ref
 
     K, V = 256, 40
@@ -371,6 +377,13 @@ def test_phi_kernels_exact(dev, z_dtype):
                          num_topics=K)
     assert torch.equal(old + d, full)
     assert int(full[V:].abs().sum()) == 0         # rows no tile visits
+    # K4 on the kept tables, into memory last filled with -1
+    rows = ops.rows_to_zero(seg, V + 3)
+    monkeypatch.setattr(torch, "empty", minus_ones)
+    again = ops.phi_update(tw, first, z_new, mask, num_words=V + 3,
+                           num_topics=K, segments=seg, zero_rows=rows)
+    monkeypatch.undo()
+    assert torch.equal(again, full)
 
 
 def segment_case(t, K, z_dtype, dev, seed=0):
@@ -432,6 +445,45 @@ def test_phi_delta_segments_exact(dev, z_dtype, t, K):
         ops.phi_delta(tw, tf, z_old, z_new, mask, num_words=V, num_topics=K)
 
 
+@pytest.mark.parametrize("z_dtype", [torch.int16, torch.int32])
+@pytest.mark.parametrize("t,K", [(64, 1024), (12, 96), (16, 90)])
+def test_phi_update_segments_exact(dev, z_dtype, t, K, monkeypatch):
+    """K4 on the segment table and its rows to zero equals its plain
+    version exactly, also into memory last filled with -1 (a row it
+    neither writes whole nor zeroes would show): a word over several
+    segments and a non-contiguous word (zeroed, then added into), single-
+    tile words (rows written whole), padding tiles, rows 21-23 that no
+    tile visits; t = 64 and 16 read z and the mask as vectors, t = 12
+    slot by slot; K = 90 writes rows bin by bin, not by 32-byte sectors.
+    K4(z_old) + K2 == K4(z_new)."""
+    from repro_torch.kernels.phi_update import kernel as k24, ops, ref
+
+    tw, tf, z_old, z_new, mask = segment_case(t, K, z_dtype, dev)
+    V = 24
+    seg = ops.segment_table(tw, tf, k24.segment_tiles())
+    rows = ops.rows_to_zero(seg, V)
+    assert rows.tolist() == [0, 3, 16, 17, 18, 19, 21, 22, 23]
+    r = ref.phi_update_tiles_ref(tw, tf, z_new, mask, V, K)
+    before = k24.phi_update_tiles.launches
+    u = ops.phi_update(tw, tf, z_new, mask, num_words=V, num_topics=K,
+                       segments=seg, zero_rows=rows)
+    assert k24.phi_update_tiles.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(u, r)
+    assert int(r[0].sum()) > 0 and int(u[21:].abs().sum()) == 0
+    monkeypatch.setattr(torch, "empty", minus_ones)
+    filled = k24.phi_update_tiles(seg, rows, z_new, mask, V, K)
+    old = k24.phi_update_tiles(seg, rows, z_old, mask, V, K)
+    d = k24.phi_delta_tiles(seg, z_new, z_old, mask, V, K)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert torch.equal(filled, r)
+    assert torch.equal(old + d, u)
+    # without the tables, ops builds them (one host sync each)
+    assert torch.equal(ops.phi_update(tw, None, z_new, mask, num_words=V,
+                                      num_topics=K), r)
+
+
 def test_training_wrappers_reject_bad_inputs(dev):
     from repro_torch.kernels.lda_sample import kernel as k1, ops as k1_ops
     from repro_torch.kernels.phi_update import kernel as k24
@@ -461,8 +513,15 @@ def test_training_wrappers_reject_bad_inputs(dev):
         k1.lda_sample_tiles(*(a.cpu() for a in args), **kw)
     tw, mask, z = args[0], args[2], args[3]
     seg = phi_ops.segment_table(tw, None, k24.segment_tiles())
+    rows = phi_ops.rows_to_zero(seg, 40)
     with pytest.raises(ValueError, match="dtype"):
-        k24.phi_update_tiles(tw, z.to(torch.int64), mask, 40, 96)
+        k24.phi_update_tiles(seg, rows, z.to(torch.int64), mask, 40, 96)
+    with pytest.raises(ValueError, match="zero_rows"):
+        k24.phi_update_tiles(seg, rows.to(torch.int64), z, mask, 40, 96)
+    with pytest.raises(ValueError, match="more than num_words"):
+        k24.phi_update_tiles(seg, rows, z, mask, int(rows.shape[0]) - 1, 96)
+    with pytest.raises(ValueError, match="segments"):
+        k24.phi_update_tiles(seg[:, :3].contiguous(), rows, z, mask, 40, 96)
     with pytest.raises(ValueError, match="contiguous"):
         k24.phi_delta_tiles(seg, z.t().contiguous().t(), z, mask, 40, 96)
     with pytest.raises(ValueError, match="segments"):
@@ -470,7 +529,8 @@ def test_training_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="segments"):
         k24.phi_delta_tiles(seg[:, :3].contiguous(), z, z, mask, 40, 96)
     with pytest.raises(ValueError, match="CUDA kernel"):
-        k24.phi_update_tiles(tw.cpu(), z.cpu(), mask.cpu(), 40, 96)
+        k24.phi_update_tiles(seg.cpu(), rows.cpu(), z.cpu(), mask.cpu(), 40,
+                             96)
 
 
 def test_fit_on_cuda_launches_training_kernels(dev):

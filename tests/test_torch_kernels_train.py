@@ -433,3 +433,96 @@ def test_shard_keeps_its_segment_table():
     assert s.cached("t", build) == 1 and s.cached("t", build) == 1
     assert calls == [1]
     assert s.to("cpu").cached("t", build) == 2
+
+
+def rows_by_walk(tile_word, tile_first, max_tiles, num_words):
+    """K4's rows to zero by a walk: every row below num_words that is not
+    the word of a sole segment of ``segments_by_walk``."""
+    seg = segments_by_walk(tile_word, tile_first, max_tiles)
+    sole = {int(w) for w, s in zip(seg[:, 2], seg[:, 3]) if s}
+    return [w for w in range(num_words) if w not in sole]
+
+
+@pytest.mark.parametrize("max_tiles", [1, 3, 16])
+def test_rows_to_zero_match_a_walk_on_reference_tiling(max_tiles):
+    """K4's list of rows to zero on the JAX package's Zipf tiling padded
+    with pad_tiles_to, for the corpus's vocabulary and for 9 rows beyond
+    it: the rows of words over several segments and the rows that no tile
+    visits, nothing else."""
+    from repro.core.corpus import tile_shard as jtile_shard
+    from repro.data.synthetic import zipf_corpus
+
+    corpus = zipf_corpus(num_docs=60, num_words=200, avg_doc_len=50, seed=3)
+    n = jtile_shard(corpus, np.arange(60), 8).tile_word.shape[0]
+    sh = jtile_shard(corpus, np.arange(60), 8, pad_tiles_to=n + 7)
+    tw, tf = np.array(sh.tile_word), np.array(sh.tile_first)
+    seg = tphi_ops.segment_table(torch.from_numpy(tw), torch.from_numpy(tf),
+                                 max_tiles)
+    for V in (corpus.num_words, corpus.num_words + 9):
+        rows = tphi_ops.rows_to_zero(seg, V)
+        assert rows.dtype == torch.int32
+        assert rows.tolist() == rows_by_walk(tw, tf, max_tiles, V)
+    assert 0 < int(rows.shape[0]) < V
+    if max_tiles == 1:       # every word with two tiles or more is zeroed
+        assert int(tw[0]) in rows.tolist()
+
+
+def test_rows_to_zero_non_contiguous_word():
+    """A word whose tiles are not contiguous owns two segments, so its row
+    is zeroed and added into; a run that tile_first splits likewise; rows
+    of words with no tile are zeroed."""
+    tw = torch.tensor([4, 4, 2, 4, 7, 7, 7, 9], dtype=torch.int32)
+    tf = torch.tensor([1, 0, 1, 1, 1, 0, 1, 1], dtype=torch.bool)
+    seg = tphi_ops.segment_table(tw, tf, 8)
+    assert tphi_ops.rows_to_zero(seg, 11).tolist() == [0, 1, 3, 4, 5, 6, 7,
+                                                       8, 10]
+    assert tphi_ops.rows_to_zero(seg, 11).tolist() == rows_by_walk(
+        tw.numpy(), tf.numpy(), 8, 11)
+    seg = tphi_ops.segment_table(tw, None, 8)
+    assert tphi_ops.rows_to_zero(seg, 10).tolist() == [0, 1, 3, 4, 5, 6, 8]
+    assert tphi_ops.rows_to_zero(seg[:0], 3).tolist() == [0, 1, 2]
+
+
+def k4_plan(tile_word, tile_first, z, token_mask, num_words, num_topics,
+            max_tiles):
+    """K4's ownership plan in plain PyTorch: an output last filled with -1,
+    the listed rows zeroed, each sole segment's row written whole from its
+    tokens' bincount, the other segments' counts added."""
+    seg = tphi_ops.segment_table(tile_word, tile_first, max_tiles)
+    out = torch.full((num_words, num_topics), -1, dtype=torch.int32)
+    out[tphi_ops.rows_to_zero(seg, num_words).long()] = 0
+    for first, tiles, word, sole in seg.tolist():
+        sl = slice(first, first + tiles)
+        counts = torch.bincount(z[sl][token_mask[sl]].long(),
+                                minlength=num_topics).to(torch.int32)
+        if sole:
+            out[word] = counts
+        else:
+            out[word] += counts
+    return out
+
+
+@pytest.mark.parametrize("K", [64, 256])
+@pytest.mark.parametrize("max_tiles", [1, 4])
+def test_k4_plan_matches_pallas_interpret(K, max_tiles):
+    """K4's plan (rows written whole by their sole segment, the others
+    zeroed and added into) equals the Pallas K4 in interpret mode on the
+    same numpy inputs, padding tiles and rows beyond the vocabulary
+    included."""
+    from repro.core.corpus import tile_shard as jtile_shard
+    from repro.data.synthetic import zipf_corpus
+
+    corpus = zipf_corpus(num_docs=40, num_words=80, avg_doc_len=40, seed=K)
+    n = jtile_shard(corpus, np.arange(40), 16).tile_word.shape[0]
+    sh = jtile_shard(corpus, np.arange(40), 16, pad_tiles_to=n + 3)
+    tw, tf, tm = (np.array(sh.tile_word), np.array(sh.tile_first),
+                  np.array(sh.token_mask))
+    z = np.random.default_rng(K).integers(0, K, tm.shape).astype(np.int16)
+    V = corpus.num_words + 4
+    J, T = jnp.asarray, torch.from_numpy
+    ju = jphi_ops.phi_update(J(tw), J(tf), J(z), J(tm), num_words=V,
+                             num_topics=K, impl="pallas", interpret=True)
+    plan = k4_plan(T(tw), T(tf), T(z), T(tm), V, K, max_tiles)
+    np.testing.assert_array_equal(np.asarray(ju), plan.numpy())
+    sole = tphi_ops.segment_table(T(tw), T(tf), max_tiles)[:, 3]
+    assert bool((sole == 1).any()) and bool((sole == 0).any())

@@ -199,8 +199,9 @@ def test_training_kernels_refuse_cpu_tensors():
     z = torch.zeros((2, 4), dtype=torch.int16)
     m = torch.ones((2, 4), dtype=torch.bool)
     tw = torch.zeros(2, dtype=torch.int32)
+    seg = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA kernel"):
-        k24.phi_update_tiles(tw, z, m, 3, 4)
+        k24.phi_update_tiles(seg, tw, z, m, 3, 4)
     with pytest.raises(ValueError, match="CUDA kernel"):
         k24.phi_delta_tiles(tw, z, z, m, 3, 4)
     with pytest.raises(ValueError, match="CUDA kernel"):
