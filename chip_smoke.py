@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two ported paths at the full width of the NYTimes
+Drives the port's ported paths at the full width of the NYTimes
 configuration (V = 101,636, K = 1024, alpha = 50/K, beta = 0.01) and holds
 every CUDA kernel of those paths against its plain PyTorch version on the
 card.  Phases, one JSON line each:
@@ -60,7 +60,21 @@ D = 299,752 docs, V = 101,636, ~99.5M tokens, Zipf 1.1):
 14. ``torch.profiler`` over two steady ``lda_iteration`` calls on the final
     state: the device-busy share of the window and the ten kernels with the
     most device time (or ``device_time_visible: false`` when the trace
-    holds no device time).
+    holds no device time);
+
+Training over a process group (one NCCL rank met through a ``file://``
+store, a ("data",) ``DeviceMesh``; the group is destroyed at the end):
+
+15. whether NCCL takes int16 (fault F4); one ``DistributedLDA.step`` on the
+    phase-7 tiling against ``lda_iteration`` from phase 11's final state
+    with the uniforms the single-device path draws there; that iteration's
+    delta synced by the int32 all-reduce and by the int16 byte wire, each
+    timed (``time_ms``), beside the bytes each wire sends per rank at
+    G = 1 and G = 4; ``fit(corpus, CONFIG, 5, mesh)`` with
+    ``compressed_sync`` off and on, each followed by K4 on its final z (the
+    K1, K2 and K4 counters read around both and added to the kernels
+    line), median tokens/s beside phase 11's; the 2d path on a (1, 1) mesh
+    on ``nytimes_like(0.1)``, compressed, 3 iterations.
 
 Bounds (fault F2: the kernels' prefix sums are float32 adds in another
 order than torch.cumsum's, so a draw on a float boundary may flip):
@@ -79,7 +93,12 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
 * training: K1 and K2 launched once per iteration plus once for fit's
   warm-up iteration, the last LL/token above the first, phi == K4(z)
   exactly, phi_sum == phi.sum(0), phi.sum() == number of tokens, every z
-  in [0, K).
+  in [0, K);
+* over the group: the mesh step equal to ``lda_iteration`` (z, phi,
+  phi_sum), the byte wire returning the delta exactly, both wires training
+  the same state, phi == K4(z) after each full-width run, and in every
+  mesh run K1 and K2 launched once per iteration plus the warm-up, the
+  LL/token rising, phi_sum == phi.sum(0), phi.sum() == number of tokens.
 
 Fails (non-zero exit, no result line) without a CUDA card, outside a
 checkout of the repository, or when any phase fails.
@@ -111,6 +130,9 @@ TRAIN_STAT_ATOL = 1e-3
 CMP_TILES = 1024               # heaviest-word tiles and tail tiles each
 TRAIN_SCALE = 1.0              # nytimes_like scale: the full NYTimes size
 TRAIN_ITERS = 10
+MESH_ITERS = 5                 # fit(mesh=...) at full width, each wire
+MESH_2D_SCALE = 0.1            # the 2d (1 x 1) run's corpus
+MESH_2D_ITERS = 3
 
 BATCH, BUCKETS, SWEEPS = 32, (32, 64, 128, 256), (8, 4)
 SERVE_DOCS, SWAP_DOCS = 256, 32
@@ -463,6 +485,181 @@ def profile_iterations(cfg, shard, state, iters: int) -> dict:
                              for k, (c, us) in top])
 
 
+def sync_bytes(V, K, G, wire: str) -> int:
+    """Bytes a rank sends (and receives) to sync one (V, K) int32 delta
+    over G ranks: a ring all-reduce moves 2 (G - 1) / G of the int32
+    array; the byte wire (a reduce-scatter and an all-gather of the int16
+    array) half that.  0 on one rank."""
+    return int(2 * (G - 1) / G * V * K * (4 if wire == "int32" else 2))
+
+
+def mesh_phases(card, corpus, shard, seg, rows, st, single_tps,
+                counters) -> dict:
+    """Phase 15: training over a one-rank NCCL group (a ``file://`` store)
+    through ``fit(mesh=...)``; returns the K1 / K2 / K4 launches of its
+    mesh runs.  ``shard``, ``seg``, ``rows`` are phase 7's tiling and
+    tables, ``st`` phase 11's final state, ``single_tps`` its median
+    tokens/s."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import lda_nytimes
+    from repro_torch.core import sync, trainer, updates
+    from repro_torch.data.synthetic import nytimes_like
+    from repro_torch.distributed import partition
+    from repro_torch.kernels.phi_update import ops as phi_ops
+    from repro_torch.train import fit
+
+    cfg = trainer.resolve_config(lda_nytimes.CONFIG, corpus)
+    V, K = corpus.num_words, cfg.num_topics
+    tw, tf, tm = shard.tile_word, shard.tile_first, shard.token_mask
+    launched = {f.__name__: 0 for f in counters}
+
+    def run(corp, c, iters, mesh, rebuild=None, **kw):
+        """One mesh fit and, as phase 11 does, ``rebuild`` (K4 on its final
+        z), the launches read around both; the counts and the LL
+        checked."""
+        for f in counters:
+            f.launches = 0
+        t0 = time.perf_counter()
+        res = fit(corp, c, iters, mesh, eval_every=1, **kw)
+        if rebuild is not None and not torch.equal(res.state.phi_vk,
+                                                   rebuild(res.state.z)):
+            raise AssertionError("phi != K4(z) after a mesh run")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {f.__name__: f.launches for f in counters}
+        for k in launched:
+            launched[k] += n[k]
+        if n["lda_sample_tiles"] != iters + 1 or \
+                n["phi_delta_tiles"] != iters + 1:
+            raise AssertionError(f"mesh run: K1/K2 not launched once per "
+                                 f"iteration (+1 warm-up): {n}")
+        if not res.ll_per_token[-1] > res.ll_per_token[0]:
+            raise AssertionError(f"mesh LL/token did not rise: "
+                                 f"{res.ll_per_token}")
+        s = res.state
+        if not torch.equal(s.phi_sum, updates.phi_totals(s.phi_vk)) or \
+                int(s.phi_vk.sum(dtype=torch.int64)) != corp.num_tokens:
+            raise AssertionError("mesh run: phi_sum or phi.sum() is off")
+        tps = res.tokens_per_sec
+        return res, dict(iters=iters, compile_sec=res.compile_sec,
+                         tokens_per_sec=tps,
+                         median_tokens_per_sec=float(np.median(tps)),
+                         ll_per_token=res.ll_per_token, launches=n,
+                         wall_s=wall)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+            init_s = time.perf_counter() - t0
+            try:             # fault F4: does NCCL take int16?
+                x = torch.ones(4, dtype=torch.int16, device=shard.device)
+                dist.all_reduce(x)
+                torch.cuda.synchronize()
+                int16 = "accepted"
+            except (RuntimeError, TypeError, ValueError) as e:
+                int16 = f"refused: {type(e).__name__}: {str(e)[:160]}"
+
+            # one mesh step against lda_iteration, with the uniforms the
+            # single-device path draws at phase 11's final state
+            t0 = time.perf_counter()
+            dl = partition.DistributedLDA(lda_nytimes.CONFIG, mesh, corpus,
+                                          mode="1d", doc_axes=("data",),
+                                          word_axes=())
+            build_s = time.perf_counter() - t0
+            same_tiling = all(torch.equal(getattr(dl.shard, f),
+                                          getattr(shard, f))
+                              for f in ("tile_word", "token_doc",
+                                        "token_mask", "tile_first",
+                                        "token_uid"))
+            u = trainer.iteration_uniforms(cfg, st)
+            a, _ = dl.step(st, u)
+            b, _ = trainer.lda_iteration(cfg, shard, st, u)
+            torch.cuda.synchronize()
+            step_equal = (torch.equal(a.z, b.z)
+                          and torch.equal(a.phi_vk, b.phi_vk)
+                          and torch.equal(a.phi_sum, b.phi_sum))
+            # one iteration's delta over the group: both wires, timed
+            moved = int(((a.z != st.z) & tm).sum())
+            delta = a.phi_vk - st.phi_vk
+            heavy = torch.from_numpy(partition.heavy_word_rows(
+                corpus, dl.plan)[0].astype(np.int64)).to(shard.device)
+            wire_equal = torch.equal(
+                sync.compressed_sync_phi(delta, dl.data_group, heavy), delta)
+            d32 = delta.clone()
+            sync_ms = dict(
+                int32=time_ms(lambda: sync.sync_phi_delta(d32,
+                                                          dl.data_group)),
+                bytes=time_ms(lambda: sync.compressed_sync_phi(
+                    delta, dl.data_group, heavy)))
+            del dl, a, b, u, delta, d32
+            emit("mesh_step", card=card, nccl_init_s=init_s,
+                 nccl_int16=int16, partition_build_s=build_s,
+                 same_tiling=same_tiling, step_equal=step_equal,
+                 wire_equal=wire_equal, heavy_rows=int(heavy.numel()),
+                 moved_tokens=moved, sync_ms=sync_ms,
+                 sync_bytes_per_rank={w: sync_bytes(V, K, 1, w)
+                                      for w in ("int32", "bytes")},
+                 sync_bytes_per_rank_at_4={w: sync_bytes(V, K, 4, w)
+                                           for w in ("int32", "bytes")})
+            if not (same_tiling and step_equal and wire_equal):
+                raise AssertionError("the mesh step differs from "
+                                     "lda_iteration, or the byte wire from "
+                                     "the delta")
+
+            # fit(mesh=...) at full width, both wires
+            def k4(z):
+                return phi_ops.phi_update(tw, tf, z, tm, num_words=V,
+                                          num_topics=K, segments=seg,
+                                          zero_rows=rows)
+
+            runs, first = {}, None
+            for comp in (False, True):
+                c = dataclasses.replace(lda_nytimes.CONFIG,
+                                        compressed_sync=comp)
+                res, runs["bytes" if comp else "int32"] = run(
+                    corpus, c, MESH_ITERS, mesh, rebuild=k4)
+                if runs["bytes" if comp else "int32"]["launches"][
+                        "phi_update_tiles"] < 1:
+                    raise AssertionError("K4 was not launched after a mesh "
+                                         "run")
+                z = res.state.z
+                if first is None:
+                    first = (z, res.state.phi_vk)
+                elif not (torch.equal(first[0], z)
+                          and torch.equal(first[1], res.state.phi_vk)):
+                    raise AssertionError("the two wires trained different "
+                                         "states")
+                del res, z
+            del first
+            emit("mesh_train", card=card, runs=runs,
+                 single_device_median_tokens_per_sec=single_tps,
+                 mesh_over_single={k: r["median_tokens_per_sec"] / single_tps
+                                   for k, r in runs.items()})
+
+            # the 2d path on a 1 x 1 mesh, smaller corpus
+            mesh2 = init_device_mesh("cuda", (1, 1),
+                                     mesh_dim_names=("data", "model"))
+            small = nytimes_like(MESH_2D_SCALE, seed=0)
+            _, run2d = run(small, dataclasses.replace(
+                lda_nytimes.CONFIG, compressed_sync=True), MESH_2D_ITERS,
+                mesh2, mode="2d", doc_axes=("data",), word_axes=("model",))
+            emit("mesh_train_2d", card=card, scale=MESH_2D_SCALE,
+                 tokens=small.num_tokens, **run2d)
+        finally:
+            dist.destroy_process_group()
+    return launched
+
+
 def train_phases(card: str, scale: float, iters: int,
                  device="cuda:0") -> list[dict]:
     """Phases 7-14; returns the kernels-line rows of K1, K2 and K4."""
@@ -675,6 +872,12 @@ def train_phases(card: str, scale: float, iters: int,
 
     # -- 14. a profiler trace of two steady iterations -----------------------
     emit("train_profile", card=card, **profile_iterations(cfg, shard, st, 2))
+
+    # -- 15. training over a process group -----------------------------------
+    mesh_launches = mesh_phases(card, corpus, shard, seg, rows, st,
+                                float(np.median(tps)), counters)
+    for k, v in mesh_launches.items():
+        launches[k] += v
 
     def row(name, src, replaces, key, err, launched):
         k = timing[key]

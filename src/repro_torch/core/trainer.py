@@ -24,8 +24,14 @@ Samplers (``LDAConfig.sampler``):
 
 Randomness is data.  ``lda_iteration`` takes the sweep's uniforms as a
 tensor, or draws them from a generator seeded from ``(cfg.seed,
-iteration)``, so a run resumed from a checkpoint draws what the
-uninterrupted run drew.
+iteration)`` (``(cfg.seed, iteration, g)`` on rank g of a mesh), so a run
+resumed from a checkpoint draws what the uninterrupted run drew.
+
+Over a mesh (``repro_torch.distributed.partition.DistributedLDA``) the same
+functions take process groups, as the reference takes mesh axes:
+``data_group`` sums phi deltas and the likelihood's doc term over the
+document shards, ``model_group`` sums theta partials, phi_sum and the word
+term over the word shards (2d).  Without groups nothing changes.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import dense_sampler, likelihood, sampler, updates
+from repro_torch.core import dense_sampler, likelihood, sampler, sync, updates
 from repro_torch.core.corpus import Corpus, TiledCorpusShard, ell_capacity
 from repro_torch.kernels.lda_sample import ops as lda_ops
 from repro_torch.kernels.phi_update import ops as phi_ops
@@ -53,8 +59,12 @@ class LDAConfig:
     sampler: str = "sq"              # "sq" (paper; the kernel on CUDA)
     #                                  | "dense" (O(K) baseline)
     topic_dtype: Any = torch.int16   # C7
-    compressed_sync: bool = False    # multi-device options; on one device
-    sync_overlap: bool = False       # the state is the same either way
+    compressed_sync: bool = False    # int16 delta sync as bytes (core/sync.py)
+    sync_overlap: bool = False       # WS2 over a mesh: each micro-chunk's
+    #                                  phi delta synced as soon as it exists
+    #                                  (exact: the sum is linear over int).
+    #                                  On one device the state is the same
+    #                                  either way.
     seed: int = 0
 
     def __post_init__(self):
@@ -104,36 +114,58 @@ class IterStats(NamedTuple):
     mean_s_over_sq: torch.Tensor  # mean S/(S+Q) (sq sampler only)
 
 
-def _seeded_generator(entropy, device) -> torch.Generator:
+def seeded_generator(entropy, device) -> torch.Generator:
+    """A generator on ``device`` seeded from a list of integers."""
     seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
 
 
-def iteration_generator(cfg: LDAConfig, iteration: int,
-                        device) -> torch.Generator:
-    """The generator of one iteration's draws, seeded from (seed, iteration)."""
-    return _seeded_generator([cfg.seed, int(iteration)], device)
+def iteration_generator(cfg: LDAConfig, iteration: int, device,
+                        rank: int | None = None) -> torch.Generator:
+    """The generator of one iteration's draws, seeded from (seed,
+    iteration), and on a mesh from (seed, iteration, shard index)."""
+    entropy = [cfg.seed, int(iteration)]
+    return seeded_generator(entropy if rank is None else entropy + [rank],
+                            device)
+
+
+def iteration_uniforms(cfg: LDAConfig, state: LDAState,
+                       rank: int | None = None) -> torch.Tensor:
+    """One iteration's sweep uniforms from ``iteration_generator``: one row
+    per tile of the shard padded to a multiple of ``micro_chunks``."""
+    n, t = state.z.shape
+    n_all = n + (-n % cfg.micro_chunks)
+    gen = iteration_generator(cfg, state.iteration, state.z.device, rank)
+    if cfg.sampler == "sq":
+        return sampler.draw_sweep_uniforms(gen, n_all, t)
+    return dense_sampler.draw_dense_uniforms(gen, n_all, t)
 
 
 def state_from_z(cfg: LDAConfig, shard: TiledCorpusShard, z: torch.Tensor,
-                 iteration: int) -> LDAState:
-    """Rebuild the derived counts from assignments (init, restore)."""
-    phi = updates.phi_from_z(z, shard.tile_word, shard.token_mask,
-                             shard.num_words, cfg.num_topics)
-    return LDAState(z=z, phi_vk=phi, phi_sum=updates.phi_totals(phi),
+                 iteration: int, data_group=None,
+                 model_group=None) -> LDAState:
+    """Rebuild the derived counts from assignments (init, restore,
+    elastic restore onto another mesh)."""
+    phi = sync.sync_phi(updates.phi_from_z(z, shard.tile_word,
+                                           shard.token_mask, shard.num_words,
+                                           cfg.num_topics), data_group)
+    return LDAState(z=z, phi_vk=phi,
+                    phi_sum=sync.global_phi_sum(phi, model_group),
                     iteration=int(iteration))
 
 
 def init_state(cfg: LDAConfig, shard: TiledCorpusShard,
-               generator: torch.Generator | None = None) -> LDAState:
+               generator: torch.Generator | None = None, data_group=None,
+               model_group=None) -> LDAState:
     """Uniform random initial assignments (from ``cfg.seed`` unless a
     generator on the shard's device is given)."""
-    gen = generator or _seeded_generator([cfg.seed], shard.device)
+    gen = generator or seeded_generator([cfg.seed], shard.device)
     z0 = torch.randint(0, cfg.num_topics, tuple(shard.token_doc.shape),
                        generator=gen, dtype=torch.int32, device=shard.device)
-    return state_from_z(cfg, shard, z0.to(cfg.topic_dtype), 0)
+    return state_from_z(cfg, shard, z0.to(cfg.topic_dtype), 0, data_group,
+                        model_group)
 
 
 def state_from_numpy(cfg: LDAConfig, shard: TiledCorpusShard, z,
@@ -152,13 +184,17 @@ def state_from_numpy(cfg: LDAConfig, shard: TiledCorpusShard, z,
     return state
 
 
-def theta_and_ell(cfg: LDAConfig, shard: TiledCorpusShard, z):
-    """Step 1 of an iteration: theta from z and its ELL slice, in int16 when
-    K and the longest document allow (C7, ``updates.ell_dtype``).  Returns
-    (theta, counts, topics, overflowed)."""
+def theta_and_ell(cfg: LDAConfig, shard: TiledCorpusShard, z,
+                  model_group=None):
+    """Step 1 of an iteration: theta from z (summed over the word shards in
+    2d) and its ELL slice, in int16 when K and the longest document allow
+    (C7, ``updates.ell_dtype``).  ``shard.max_doc_length`` is a document's
+    whole length: in 2d the ELL holds the model-group sum, which reaches it.
+    Returns (theta, counts, topics, overflowed)."""
     K = cfg.num_topics
-    theta = updates.theta_from_z(z, shard.token_doc, shard.token_mask,
-                                 shard.num_docs_local, K)
+    theta = sync.sync_theta(updates.theta_from_z(
+        z, shard.token_doc, shard.token_mask, shard.num_docs_local, K),
+        model_group)
     P = cfg.ell_capacity or min(K, shard.max_doc_length)
     counts, topics, overflow = updates.theta_to_ell(
         theta, min(P, K), updates.ell_dtype(K, shard.max_doc_length))
@@ -176,29 +212,42 @@ def _pad_tiles(arrays, n_pad: int):
 
 
 def lda_iteration(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
-                  uniforms: torch.Tensor | None = None
+                  uniforms: torch.Tensor | None = None, *, data_group=None,
+                  model_group=None, heavy_rows: torch.Tensor | None = None
                   ) -> tuple[LDAState, IterStats]:
-    """One full sweep over the shard's tokens and the phi advance.
+    """One full sweep over the shard's tokens, the phi advance and its sync.
 
     ``uniforms``: the sweep's randomness — for ``"sq"`` (n_pad, t, 2), for
     ``"dense"`` (n_pad, t), where n_pad is the tile count padded to a
     multiple of ``micro_chunks``; micro-chunk m reads rows
-    [m n_pad/M, (m+1) n_pad/M).  Drawn from ``iteration_generator`` when
-    not given.  Launches work without synchronising the device."""
+    [m n_pad/M, (m+1) n_pad/M).  Drawn by ``iteration_uniforms`` when not
+    given.  ``data_group``, ``model_group``: the mesh's process groups (see
+    the module docstring); ``heavy_rows``: the int32-sync rows of
+    ``compressed_sync``.
+
+    ``cfg.sync_overlap`` with M > 1 over a data group syncs each
+    micro-chunk's phi delta as soon as it exists (``async_op``), so the
+    collective runs while the next chunk samples (which reads only the
+    frozen iteration-start phi), and waits before the phi add; the sum is
+    linear over the integers, so the state is the serialized sync's bit
+    for bit.  Launches work without synchronising the device."""
     K = cfg.num_topics
     alpha, beta = cfg.resolved_alpha(), cfg.beta
     n, t = state.z.shape
     M = cfg.micro_chunks
     n_pad = -n % M
     if uniforms is None:
-        gen = iteration_generator(cfg, state.iteration, state.z.device)
-        uniforms = (sampler.draw_sweep_uniforms(gen, n + n_pad, t)
-                    if cfg.sampler == "sq"
-                    else dense_sampler.draw_dense_uniforms(gen, n + n_pad, t))
+        uniforms = iteration_uniforms(cfg, state)
 
-    theta, ell_c, ell_t, overflow = theta_and_ell(cfg, shard, state.z)
+    theta, ell_c, ell_t, overflow = theta_and_ell(cfg, shard, state.z,
+                                                  model_group)
     v_total = shard.num_words_total or shard.num_words
     kw = dict(alpha=alpha, beta=beta, num_words_total=v_total)
+    overlap = cfg.sync_overlap and M > 1 and data_group is not None
+
+    def sync_delta(delta, async_op=False):
+        return sync.sync_phi_delta(delta, data_group, heavy_rows,
+                                   cfg.compressed_sync, async_op)
 
     def sweep(tw, td, tm, zc, u, theta_c, cnts, tpcs, c):
         if cfg.sampler == "sq":
@@ -222,16 +271,24 @@ def lda_iteration(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
             n_pad)
         nc = (n + n_pad) // M
         P = ell_c.shape[1]
+        chunk_segs = phi_ops.shard_chunk_segments(shard, M) if overlap \
+            else None
         theta_c = theta
-        z_parts, sfs, ssqs = [], [], []
+        z_parts, sfs, ssqs, pending = [], [], [], []
         for m in range(M):
             sl = slice(m * nc, (m + 1) * nc)
             cnts, tpcs = updates.ell_topk(theta_c, P, ell_c.dtype)
             z_c, st = sweep(tw_a[sl], td_a[sl], tm_a[sl], z_a[sl],
                             uniforms[sl], theta_c, cnts, tpcs,
                             min(cfg.tiles_per_step, nc))
-            theta_c = theta_c + updates.theta_delta(
-                z_a[sl], z_c, td_a[sl], tm_a[sl], theta_c.shape[0], K)
+            theta_c = theta_c + sync.sync_theta(updates.theta_delta(
+                z_a[sl], z_c, td_a[sl], tm_a[sl], theta_c.shape[0], K),
+                model_group)
+            if overlap:   # this chunk's delta (K2 on its tiles), on the wire
+                pending.append(sync_delta(phi_ops.phi_delta(
+                    tw_a[sl], None, z_a[sl], z_c, tm_a[sl],
+                    num_words=shard.num_words, num_topics=K,
+                    segments=chunk_segs and chunk_segs[m]), async_op=True))
             z_parts.append(z_c)
             sfs.append(st.sparse_frac)
             ssqs.append(st.mean_s_over_sq)
@@ -239,29 +296,42 @@ def lda_iteration(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
         sparse_frac = torch.stack(sfs).mean()
         mean_ssq = torch.stack(ssqs).mean()
 
-    # incremental phi advance: one count pass over the sweep's moves (K2 on
-    # a CUDA device), exact in integer arithmetic
-    delta = phi_ops.phi_delta(shard.tile_word, shard.tile_first, state.z,
-                              z_new, shard.token_mask,
-                              num_words=shard.num_words, num_topics=K,
-                              segments=phi_ops.shard_segments(shard))
-    phi = state.phi_vk + delta
-    new_state = LDAState(z=z_new, phi_vk=phi, phi_sum=updates.phi_totals(phi),
+    if overlap:
+        phi = state.phi_vk
+        for p in pending:
+            phi = phi + p.wait()
+    else:
+        # incremental phi advance: one count pass over the sweep's moves
+        # (K2 on a CUDA device), exact in integer arithmetic, then synced
+        delta = phi_ops.phi_delta(shard.tile_word, shard.tile_first,
+                                  state.z, z_new, shard.token_mask,
+                                  num_words=shard.num_words, num_topics=K,
+                                  segments=phi_ops.shard_segments(shard))
+        phi = state.phi_vk + sync_delta(delta)
+    new_state = LDAState(z=z_new, phi_vk=phi,
+                         phi_sum=sync.global_phi_sum(phi, model_group),
                          iteration=state.iteration + 1)
     return new_state, IterStats(sparse_frac=sparse_frac,
                                 ell_overflow=overflow.sum(),
                                 mean_s_over_sq=mean_ssq)
 
 
-def log_likelihood(cfg: LDAConfig, shard: TiledCorpusShard,
-                   state: LDAState) -> torch.Tensor:
-    """Joint collapsed log-likelihood (Fig. 8 metric), 0-d float32."""
-    theta = updates.theta_from_z(state.z, shard.token_doc, shard.token_mask,
-                                 shard.num_docs_local, cfg.num_topics)
-    return likelihood.joint_log_likelihood(
-        theta, shard.doc_length, state.phi_vk, state.phi_sum,
-        cfg.resolved_alpha(), cfg.beta,
-        shard.num_words_total or shard.num_words)
+def log_likelihood(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
+                   data_group=None, model_group=None) -> torch.Tensor:
+    """Joint collapsed log-likelihood (Fig. 8 metric), 0-d float32.  Over a
+    mesh: the doc term summed over the document shards, the word term from
+    the phi this rank holds (the replica in 1d, summed over the word shards
+    in 2d), so every rank returns the whole."""
+    alpha, beta = cfg.resolved_alpha(), cfg.beta
+    theta = sync.sync_theta(updates.theta_from_z(
+        state.z, shard.token_doc, shard.token_mask, shard.num_docs_local,
+        cfg.num_topics), model_group)
+    dterm = sync.maybe_all_reduce(
+        likelihood.doc_term(theta, shard.doc_length, alpha), data_group)
+    winner = sync.maybe_all_reduce(
+        likelihood.word_inner_term(state.phi_vk, beta), model_group)
+    return dterm + winner + likelihood.word_outer_term(
+        state.phi_sum, beta, shard.num_words_total or shard.num_words)
 
 
 @dataclasses.dataclass

@@ -1,1 +1,1 @@
-"""Checkpointing of training state (single device in this slice)."""
+"""Checkpointing of training state, and the multi-device partitions."""

@@ -16,8 +16,9 @@ phi are counts rebuilt exactly from it.  A checkpoint is therefore:
 * elastic — restore re-tiles z onto whatever tiling the run has.
 
 Snapshots publish the derived frozen model (phi + hyperparameters) to the
-serving side, dense ``.npz`` only: the V-sharded layout comes with the
-multi-device slice.
+serving side, dense ``.npz`` only: the V-sharded layout comes with sharded
+serving.  A state trained over a mesh publishes through its partition
+(``publish_snapshot(state, partition=dl)``), which writes the canonical phi.
 """
 from __future__ import annotations
 
@@ -145,24 +146,38 @@ class CheckpointManager:
         return None
 
     # -- serving snapshots --------------------------------------------------
-    def publish_snapshot(self, state, alpha: float, beta: float,
+    def snapshot_path(self, iteration: int) -> str:
+        """Where the dense snapshot of ``iteration`` is written."""
+        return os.path.join(self.dir, f"snapshot_{int(iteration):08d}.npz")
+
+    def publish_snapshot(self, state, alpha: float | None = None,
+                         beta: float | None = None,
                          num_words_total: int | None = None, vocab=None,
                          meta: dict | None = None,
-                         shards: int | None = None) -> str:
+                         shards: int | None = None, *,
+                         partition=None) -> str:
         """Write ``state``'s phi as a dense serving snapshot
-        ``snapshot_<iteration>.npz`` and prune to the newest ``keep``."""
+        ``snapshot_<iteration>.npz`` and prune to the newest ``keep``.
+
+        ``partition``: the ``DistributedLDA`` that trained ``state``; it
+        gathers the canonical phi (a collective: every rank calls this),
+        takes alpha and beta from its config, and its rank 0 writes."""
         if shards and shards > 1:
             raise NotImplementedError(
-                "V-sharded snapshots come with slice 3 (multi-GPU and "
-                "sharded serving); publish a dense snapshot")
+                "V-sharded snapshots come with slice 3 (sharded serving, "
+                "item 9); publish a dense snapshot")
+        if partition is not None:
+            return partition._publish(self, state, vocab=vocab, meta=meta)
+        if alpha is None or beta is None:
+            raise TypeError("publish_snapshot needs (state, alpha, beta) "
+                            "or a partition=")
         from repro_torch.serve import snapshot as snap_mod
 
         it = int(_host(state.iteration))
         snap = snap_mod.snapshot_from_state(
             state, alpha=alpha, beta=beta, num_words_total=num_words_total,
             vocab=vocab, meta=dict(meta or {}, iteration=it), device="cpu")
-        out = snap_mod.save_snapshot(
-            os.path.join(self.dir, f"snapshot_{it:08d}.npz"), snap)
+        out = snap_mod.save_snapshot(self.snapshot_path(it), snap)
         self._prune_snapshots()
         return out
 

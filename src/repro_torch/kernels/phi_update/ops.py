@@ -80,6 +80,31 @@ def shard_segments(shard):
         shard.tile_word, shard.tile_first, kernel.segment_tiles()))
 
 
+def shard_chunk_segments(shard, micro_chunks: int):
+    """K2's segment tables of a shard's ``micro_chunks`` micro-chunks on a
+    CUDA device, one per chunk, for the per-chunk delta of
+    ``LDAConfig.sync_overlap``; None on the CPU.  The trainer cuts the
+    tiles padded to a multiple of ``micro_chunks`` with masked tiles of
+    word 0 (``trainer._pad_tiles``); chunk m's table indexes its own
+    tiles.  Built on first use and kept with the shard, with one host sync
+    a chunk: set-up calls this before the sync-guarded iterations."""
+    if shard.device.type != "cuda":
+        return None
+
+    def build():
+        n = shard.tile_word.shape[0]
+        n_pad = -n % micro_chunks
+        nc = (n + n_pad) // micro_chunks
+        pad = torch.zeros(n_pad, dtype=torch.bool, device=shard.device)
+        tw = torch.cat([shard.tile_word, pad.to(shard.tile_word.dtype)])
+        tf = torch.cat([shard.tile_first.to(torch.bool), pad])
+        return tuple(segment_table(tw[m * nc:(m + 1) * nc],
+                                   tf[m * nc:(m + 1) * nc],
+                                   kernel.segment_tiles())
+                     for m in range(micro_chunks))
+    return shard.cached(f"phi_delta_segments_{micro_chunks}_chunks", build)
+
+
 def shard_rows_to_zero(shard):
     """K4's ``rows_to_zero`` for a shard on a CUDA device and its
     ``num_words`` rows, built on first use and kept with the shard; None

@@ -1,6 +1,7 @@
-"""Training launcher: CGS-LDA on one device (``--workload lda``).
+"""Training launcher: CGS-LDA on one device or over a mesh
+(``--workload lda``).
 
-The port of ``repro.launch.train`` for a single card:
+The port of ``repro.launch.train``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --iters 50 --topics 1024 --scale 0.01
 
@@ -8,9 +9,20 @@ trains on the NYTimes-shaped synthetic corpus (or a UCI bag-of-words file
 with ``--uci``) on ``cuda:0``, checkpointing every ``--ckpt-every``
 iterations and resuming from the newest compatible checkpoint.
 ``--device cpu`` runs the plain PyTorch sweep instead of the kernels.
-Multi-device training (``--mode 2d``, ``--host-devices``,
-``--distributed``) comes with slice 3, and transformer pretraining
-(``--workload lm``) with slice 4: those flags exit non-zero.
+
+Over several devices (one process per rank):
+
+* ``--host-devices N`` spawns N local ranks: gloo ranks with ``--device
+  cpu`` (as the reference forces N host devices), NCCL ranks on cards
+  0..N-1 otherwise (fewer cards raise);
+* ``--distributed`` joins the group ``torchrun`` describes
+  (``torchrun --nproc-per-node 4 -m repro_torch.launch.train
+  --distributed``; ``--init-method file:///path`` for a shared store);
+* ``--mode 2d`` lays the ranks out as a (data, model) mesh; on one device
+  it trains without a mesh, as the reference does.
+
+Transformer pretraining (``--workload lm``) comes with slice 4 and exits
+non-zero.
 """
 from __future__ import annotations
 
@@ -21,12 +33,6 @@ import sys
 NOT_PORTED = {
     "workload": ("--workload lm (transformer pretraining) is not ported: it "
                  "comes with slice 4 of the port"),
-    "mode": ("--mode 2d (doc x word partition) needs several devices: it "
-             "comes with slice 3 (multi-GPU) of the port"),
-    "host_devices": ("--host-devices simulates a mesh: multi-device training "
-                     "comes with slice 3 (multi-GPU) of the port"),
-    "distributed": ("--distributed (multi-host) comes with slice 3 "
-                    "(multi-GPU) of the port"),
 }
 
 
@@ -41,6 +47,9 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--sampler", choices=["sq", "dense"], default="sq",
                     help="the paper's S/Q sampler (the fused CUDA kernel on "
                          "a card) or the O(K) dense baseline")
+    ap.add_argument("--compressed-sync", action="store_true",
+                    help="over a mesh, sync phi deltas on the int16 byte "
+                         "wire (half the bytes of the int32 all-reduce)")
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--topics", type=int, default=1024)
     ap.add_argument("--scale", type=float, default=0.0005)
@@ -53,8 +62,14 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="export host phase spans (compile/sample/eval) as "
                          "Chrome trace JSON, viewable in Perfetto")
-    ap.add_argument("--host-devices", type=int, default=0)
-    ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--host-devices", type=int, default=0,
+                    help="spawn N local ranks (gloo with --device cpu, "
+                         "NCCL on N cards otherwise)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the process group torchrun describes")
+    ap.add_argument("--init-method", default="env://",
+                    help="--distributed's rendezvous: env:// (torchrun) or "
+                         "file:///path of a shared store")
     ap.add_argument("--sanitize", action="store_true",
                     help="debug mode: any host-device synchronisation inside "
                          "the sampling sweep is an error")
@@ -65,51 +80,91 @@ def refused(args) -> str | None:
     """The message for a flag this slice does not bring, else None."""
     if args.workload != "lda":
         return NOT_PORTED["workload"]
-    if args.mode != "1d":
-        return NOT_PORTED["mode"]
-    if args.host_devices:
-        return NOT_PORTED["host_devices"]
-    if args.distributed:
-        return NOT_PORTED["distributed"]
     return None
 
 
 def run_lda(args) -> int:
+    """Train on one device, or as this rank of the default group when one
+    is initialised."""
+    import torch
+    import torch.distributed as dist
+
     from repro_torch.core import trainer
     from repro_torch.core.corpus import read_uci_bow
     from repro_torch.data.synthetic import nytimes_like
     from repro_torch.device import resolve_device
+    from repro_torch.distributed.launch import training_mesh
     from repro_torch.obs import Observability
     from repro_torch.train import fit
 
     dev = resolve_device(args.device)
+    mesh, lead = None, True
+    if dist.is_initialized():
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        mesh = training_mesh(dev.type, args.mode)
+        lead = dist.get_rank() == 0
     corpus = read_uci_bow(args.uci) if args.uci else nytimes_like(args.scale)
-    cfg = trainer.LDAConfig(num_topics=args.topics, sampler=args.sampler)
+    cfg = trainer.LDAConfig(num_topics=args.topics, sampler=args.sampler,
+                            compressed_sync=args.compressed_sync)
     # eval cadence hits every --ckpt-every multiple and keeps the
     # every-10-iterations progress line
     ev = math.gcd(10, max(1, args.ckpt_every))
     obs = Observability.default(trace=bool(args.trace_out))
-    res = fit(corpus, cfg, args.iters, device=dev, eval_every=ev, obs=obs,
+    res = fit(corpus, cfg, args.iters, mesh, mode=args.mode,
+              doc_axes=("data",),
+              word_axes=("model",) if args.mode == "2d" else (),
+              device=dev, eval_every=ev, obs=obs,
               metrics_out=args.metrics_out, sanitize=args.sanitize,
               checkpoint_dir=args.ckpt_dir, checkpoint_every=args.ckpt_every,
               verbose=True)
+    if not lead:
+        return 0
     if args.trace_out:
         print(f"[obs] trace -> {obs.tracer.export(args.trace_out)}")
     if args.metrics_out:
         print(f"[obs] per-iteration metrics -> {args.metrics_out}")
     if res.tokens_per_sec:   # empty when resume already covered --iters
         tps = sorted(res.tokens_per_sec)[len(res.tokens_per_sec) // 2]
-        print(f"[done] {dev}  warm-up {res.compile_sec:.1f}s  "
-              f"median {tps / 1e6:.3f}M tok/s")
+        where = (f"{mesh.size()} ranks ({args.mode}, "
+                 f"{'int16 bytes' if args.compressed_sync else 'int32'} "
+                 "sync)" if mesh else str(dev))
+        print(f"[done] {where}  warm-up {res.compile_sec:.1f}s  "
+              f"median {tps / 1e6:.3f}M tok/s", flush=True)
     return 0
 
 
+def _local_rank(rank: int, argv: list[str]) -> None:
+    run_lda(build_argparser().parse_args(argv))
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
     msg = refused(args)
     if msg:
         print(f"[train] {msg}", file=sys.stderr)
         return 2
+    if args.host_devices:
+        from repro_torch.device import resolve_device
+        from repro_torch.distributed import launch
+
+        dev = resolve_device(args.device)
+        launch.spawn(_local_rank, args.host_devices, args=(argv,),
+                     device_type=dev.type)
+        return 0
+    if args.distributed:
+        import torch.distributed as dist
+
+        from repro_torch.device import resolve_device
+        from repro_torch.distributed import launch
+
+        launch.init_from_env(resolve_device(args.device).type,
+                             args.init_method)
+        try:
+            return run_lda(args)
+        finally:
+            dist.destroy_process_group()
     return run_lda(args)
 
 

@@ -1,18 +1,24 @@
-"""The training driver: ``fit`` on one device, as ``repro.train.fit``
-without a mesh.
+"""The training driver: ``fit`` on one device or over a mesh, as
+``repro.train.fit``.
 
+* ``mesh=None`` trains on one device; a
+  ``torch.distributed.device_mesh.DeviceMesh`` builds a ``DistributedLDA``
+  partition (``mode``/``doc_axes``/``word_axes`` as in its constructor) and
+  runs the same loop over its step, one process per rank.
 * Telemetry through ``repro_torch.obs``: per-iteration counters and latency
   histograms, ``compile``/``sample``/``eval`` host spans and, with
-  ``metrics_out``, one JSONL row per iteration — all host side, so draws
-  are the same with or without it.
+  ``metrics_out``, one JSONL row per iteration (rank 0's over a mesh) — all
+  host side, so draws are the same with or without it.
 * Warm-up timed apart as ``compile_sec``: the first iteration is run once
   from the starting state and thrown away (kernel build and load, allocator
-  growth), so every row of ``tokens_per_sec`` is a steady-state iteration.
-  Draws depend only on ``(cfg.seed, iteration)``, so the warm-up changes
-  nothing.
-* Each iteration's clock stops after the device has finished it.
+  growth, the collectives' set-up), so every row of ``tokens_per_sec`` is a
+  steady-state iteration.  Draws depend only on ``(cfg.seed, iteration)``
+  (and the shard over a mesh), so the warm-up changes nothing.
+* Each iteration's clock stops after this rank's device has finished it;
+  tokens/s counts the whole corpus's tokens.
 * Checkpoint/resume in the reference's format (canonical z keyed by the
-  corpus fingerprint).
+  corpus fingerprint), elastic across rank counts and partition modes; over
+  a mesh rank 0 writes.
 * ``sanitize=True`` runs each sweep under
   ``torch.cuda.set_sync_debug_mode("error")``: a sweep that would make the
   host wait on the device fails (the counterpart of the reference's
@@ -56,11 +62,15 @@ def fit(
     corpus: Corpus,
     cfg: LDAConfig,
     num_iterations: int,
-    mesh=None,
+    mesh=None,                     # DeviceMesh -> DistributedLDA path
     *,
-    device=None,                   # default cuda:0; "cpu" runs plain PyTorch
+    mode: str = "1d",              # mesh partition: "1d" (paper) | "2d"
+    doc_axes=None,
+    word_axes=("model",),
+    device=None,                   # default cuda:0 (the mesh's device type
+    #                                over a mesh); "cpu" runs plain PyTorch
     eval_every: int = 1,
-    shard: TiledCorpusShard | None = None,   # pre-tiled corpus
+    shard: TiledCorpusShard | None = None,   # one device: pre-tiled corpus
     callback: Callable[[int, LDAState, float], None] | None = None,
     obs=None,                      # repro_torch.obs.Observability
     metrics_out: str | None = None,  # per-iteration JSONL sink path
@@ -70,15 +80,30 @@ def fit(
     resume: bool = True,           # resume from checkpoint_dir if compatible
     verbose: bool = False,         # print per-eval progress lines
 ) -> TrainResult:
-    """Train LDA on one device end to end.  ``mesh`` must be None: training
-    over several cards comes with slice 3."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit(mesh=...) trains over several devices, which the port "
-            "brings in slice 3 (multi-GPU); pass mesh=None")
+    """Train LDA end to end, on one device or, with ``mesh``, as this rank
+    of a ``DistributedLDA`` (every rank calls ``fit``).  Telemetry,
+    checkpointing and the returned ``TrainResult`` are the same on both
+    paths."""
     from repro_torch.distributed import checkpoint as ckpt
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else None
+    mgr = fp = None
+    if checkpoint_dir:
+        mgr = ckpt.CheckpointManager(checkpoint_dir)
+        fp = ckpt.corpus_fingerprint(corpus)
+    latest = None
+    if mgr is not None and resume:
+        latest = mgr.latest()
+        if not (latest and latest[2].get("fingerprint") == fp):
+            latest = None
+    loop = dict(eval_every=eval_every, callback=callback, obs=obs,
+                metrics_out=metrics_out, sanitize=sanitize, mgr=mgr,
+                checkpoint_every=checkpoint_every, verbose=verbose)
+    if mesh is not None:
+        return _fit_mesh(corpus, cfg, num_iterations, mesh, mode=mode,
+                         doc_axes=doc_axes, word_axes=word_axes,
+                         device=device, latest=latest, fp=fp, **loop)
+
     cfg = trainer.resolve_config(cfg, corpus)
     shard = (tile_corpus(corpus, 1, cfg.tile_tokens)[0] if shard is None
              else shard).to(dev)
@@ -86,21 +111,13 @@ def fit(
     # the shard, so that no iteration (sync-guarded under sanitize) builds it
     phi_ops.shard_segments(shard)
 
-    mgr = fp = None
-    if checkpoint_dir:
-        mgr = ckpt.CheckpointManager(checkpoint_dir)
-        fp = ckpt.corpus_fingerprint(corpus)
-
-    it0, state = 0, None
-    if mgr is not None and resume:
-        latest = mgr.latest()
-        if latest and latest[2].get("fingerprint") == fp:
-            it0, z, _ = latest
-            z_tiled = ckpt.scatter_canonical_z(z, shard.token_uid)
-            state = trainer.state_from_numpy(cfg, shard, z_tiled, it0)
-            print(f"[resume] iteration {it0} (single device)")
-    if state is None:
-        state = trainer.init_state(cfg, shard)
+    if latest is not None:
+        it0, z, _ = latest
+        z_tiled = ckpt.scatter_canonical_z(z, shard.token_uid)
+        state = trainer.state_from_numpy(cfg, shard, z_tiled, it0)
+        print(f"[resume] iteration {it0} (single device)")
+    else:
+        it0, state = 0, trainer.init_state(cfg, shard)
 
     def save_fn(it, st):
         z = ckpt.gather_canonical_z(st.z, shard.token_uid, corpus.num_tokens)
@@ -108,18 +125,45 @@ def fit(
                              "num_topics": cfg.num_topics})
 
     return _run_loop(
-        cfg, shard, it0, num_iterations, state,
+        cfg, lambda st: trainer.lda_iteration(cfg, shard, st), dev,
+        shard.num_tokens, it0, num_iterations, state,
         ll_fn=lambda st: float(trainer.log_likelihood(cfg, shard, st))
         / corpus.num_tokens,
-        save_fn=save_fn if mgr is not None else None, mgr=mgr,
-        eval_every=eval_every, callback=callback, obs=obs,
-        metrics_out=metrics_out, sanitize=sanitize,
-        checkpoint_every=checkpoint_every, verbose=verbose)
+        save_fn=save_fn if mgr is not None else None, **loop)
 
 
-def _run_loop(cfg, shard, it0, num_iterations, state, *, ll_fn, save_fn, mgr,
-              eval_every, callback, obs, metrics_out, sanitize,
-              checkpoint_every, verbose) -> TrainResult:
+def _fit_mesh(corpus, cfg, num_iterations, mesh, *, mode, doc_axes,
+              word_axes, device, latest, fp, **loop) -> TrainResult:
+    from repro_torch.distributed.partition import DistributedLDA
+
+    dl = DistributedLDA(cfg, mesh, corpus, mode=mode, doc_axes=doc_axes,
+                        word_axes=word_axes, device=device)
+    lead = dl.rank == 0
+    if latest is not None:
+        it0, z, _ = latest
+        state = dl.restore(z, it0)
+        if lead:
+            print(f"[resume] iteration {it0} on {dl.num_shards} ranks "
+                  f"({mode})")
+    else:
+        it0, state = 0, dl.init()
+    mgr = loop["mgr"]
+    return _run_loop(
+        dl.cfg, dl.step, dl.device, corpus.num_tokens, it0, num_iterations,
+        state, ll_fn=dl.log_likelihood,     # already per token
+        save_fn=(lambda it, st: dl.save_checkpoint(mgr, st,
+                                                   {"fingerprint": fp}))
+        if mgr is not None else None, lead=lead, **loop)
+
+
+def _run_loop(cfg, step, dev, num_tokens, it0, num_iterations, state, *,
+              ll_fn, save_fn, mgr, eval_every, callback, obs, metrics_out,
+              sanitize, checkpoint_every, verbose,
+              lead=True) -> TrainResult:
+    """The loop both paths share: ``step(state) -> (state, stats)`` on
+    device ``dev``; ``lead`` (rank 0 over a mesh) prints and writes the
+    metrics rows.  Every rank evaluates and checkpoints at the same
+    iterations, as those are collectives."""
     from repro_torch.obs import NULL_SINK, JsonlSink, Observability
 
     obs = obs if obs is not None else Observability.default(trace=False)
@@ -131,15 +175,13 @@ def _run_loop(cfg, shard, it0, num_iterations, state, *, ll_fn, save_fn, mgr,
                               "wall time per training iteration")
     g_tps = reg.gauge("repro_train_tokens_per_sec", "last iteration's rate")
     g_ll = reg.gauge("repro_train_ll_per_token", "last evaluated joint LL")
-    sink = JsonlSink(metrics_out) if metrics_out else NULL_SINK
-    dev = shard.device
-    num_tokens = shard.num_tokens
+    sink = JsonlSink(metrics_out) if metrics_out and lead else NULL_SINK
 
     # warm-up: the first iteration once, thrown away
     t0 = time.perf_counter()
     with tracer.span("compile", sampler=cfg.sampler):
         if it0 < num_iterations:
-            trainer.lda_iteration(cfg, shard, state)
+            step(state)
             _synchronize(dev)
     compile_sec = time.perf_counter() - t0
 
@@ -151,7 +193,7 @@ def _run_loop(cfg, shard, it0, num_iterations, state, *, ll_fn, save_fn, mgr,
             t0 = time.perf_counter()
             with tracer.span("sample", iteration=it):
                 with sync_guard(sanitize, dev):
-                    state, stats = trainer.lda_iteration(cfg, shard, state)
+                    state, stats = step(state)
                 _synchronize(dev)
             dt = time.perf_counter() - t0
             tps.append(num_tokens / dt)
@@ -167,7 +209,7 @@ def _run_loop(cfg, shard, it0, num_iterations, state, *, ll_fn, save_fn, mgr,
                     ll = float(ll_fn(state))
                 lls.append(ll)
                 g_ll.set(ll)
-                if verbose:
+                if verbose and lead:
                     print(f"iter {it + 1:5d}  {tps[-1] / 1e6:7.2f}M tok/s  "
                           f"LL/token {ll:.4f}  "
                           f"sparse {st[-1][0]:.2f}  "

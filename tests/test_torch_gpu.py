@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the fold-in and training kernels
 against their plain PyTorch versions on the card, the wrappers' input checks,
-the engine and the trainer running through the kernels.  Skipped without a
-card.  This file imports no JAX, so it runs on a machine that has only
+the engine and the trainer running through the kernels, and training over a
+one-rank NCCL group (spawned, never in the test's process).  Skipped without
+a card.  This file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -600,3 +601,147 @@ def test_lda_iteration_on_cuda_matches_plain(dev, M):
         num_words=corpus.num_words, num_topics=64))
     assert torch.equal(b.phi_sum, b.phi_vk.sum(0, dtype=torch.int32))
     assert abs(float(sa.sparse_frac) - float(sb.sparse_frac)) < 0.01
+
+
+# ---------------------------------------------------------------------------
+# training over a process group: one NCCL rank on the card
+# ---------------------------------------------------------------------------
+MESH_CASES = [  # (mode, compressed_sync, micro_chunks, sync_overlap)
+    ("1d", False, 1, False), ("1d", True, 1, False), ("1d", False, 2, True),
+    ("1d", True, 2, True), ("2d", False, 1, False), ("2d", True, 1, False)]
+
+
+def test_chunk_segment_tables_give_the_whole_delta(dev):
+    """K2 on each micro-chunk's tiles with its own segment table (the
+    per-chunk delta of sync_overlap; M = 3 pads the tile count) adds up to
+    K2 on every tile."""
+    from repro_torch.core import trainer
+    from repro_torch.core.corpus import tile_corpus
+    from repro_torch.data.synthetic import lda_corpus
+    from repro_torch.kernels.phi_update import ops as phi_ops
+
+    corpus = lda_corpus(num_docs=60, num_words=120, num_topics=8,
+                        avg_doc_len=40, seed=4)
+    shard = tile_corpus(corpus, 1, 32)[0].to(dev)
+    n, t = shard.token_doc.shape
+    M = 3
+    assert n % M
+    gen = torch.Generator(device=dev).manual_seed(0)
+    z0 = torch.randint(0, 64, (n, t), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int16)
+    z1 = torch.randint(0, 64, (n, t), generator=gen, device=dev,
+                       dtype=torch.int32).to(torch.int16)
+    whole = phi_ops.phi_delta(shard.tile_word, shard.tile_first, z0, z1,
+                              shard.token_mask, num_words=120, num_topics=64,
+                              segments=phi_ops.shard_segments(shard))
+    tw, _, tm, za = trainer._pad_tiles((shard.tile_word, shard.token_doc,
+                                        shard.token_mask, z0), -n % M)
+    zb = trainer._pad_tiles((z1,), -n % M)[0]
+    nc = tw.shape[0] // M
+    tables = phi_ops.shard_chunk_segments(shard, M)
+    assert phi_ops.shard_chunk_segments(shard, M) is tables   # kept
+    parts = [phi_ops.phi_delta(tw[m * nc:(m + 1) * nc], None,
+                               za[m * nc:(m + 1) * nc],
+                               zb[m * nc:(m + 1) * nc],
+                               tm[m * nc:(m + 1) * nc], num_words=120,
+                               num_topics=64, segments=tables[m])
+             for m in range(M)]
+    assert torch.equal(sum(parts), whole)
+
+
+def _nccl_rank(rank, out_path):
+    """One NCCL rank: the byte wire against an int32 all-reduce, whether
+    NCCL takes int16, and one mesh step against lda_iteration."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import sync, trainer
+    from repro_torch.data.synthetic import lda_corpus
+    from repro_torch.distributed.partition import DistributedLDA
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    delta = torch.zeros((7, 5), dtype=torch.int32, device=dev)
+    delta[1, 2], delta[3, 0], delta[0, 4] = 40000, -35000, 123
+    heavy = torch.tensor([1, 3, 3, 0], device=dev)
+    exact = delta.clone()
+    dist.all_reduce(exact)
+    wrapped = sync.compressed_sync_phi(delta.clone(), dist.group.WORLD)
+    fixed = sync.compressed_sync_phi(delta.clone(), dist.group.WORLD, heavy)
+    out["wire_exact"] = torch.equal(fixed, exact) and torch.equal(
+        exact, delta)
+    out["wire_wraps"] = int(wrapped[1, 2]) == 40000 - (1 << 16)
+    try:
+        dist.all_reduce(torch.ones(4, dtype=torch.int16, device=dev))
+        torch.cuda.synchronize()
+        out["nccl_int16"] = "accepted"
+    except (RuntimeError, TypeError, ValueError) as e:
+        out["nccl_int16"] = f"refused: {type(e).__name__}"
+
+    corpus = lda_corpus(num_docs=60, num_words=120, num_topics=8,
+                        avg_doc_len=40, seed=4)
+    meshes = {"1d": init_device_mesh("cuda", (1,), mesh_dim_names=("data",)),
+              "2d": init_device_mesh("cuda", (1, 1),
+                                     mesh_dim_names=("data", "model"))}
+    for mode, comp, M, overlap in MESH_CASES:
+        cfg = trainer.LDAConfig(num_topics=64, tile_tokens=32,
+                                micro_chunks=M, compressed_sync=comp,
+                                sync_overlap=overlap)
+        dl = DistributedLDA(cfg, meshes[mode], corpus, mode=mode,
+                            doc_axes=("data",),
+                            word_axes=("model",) if mode == "2d" else ())
+        s0 = dl.init()
+        n, t = s0.z.shape
+        u = torch.rand((n + (-n % M), t, 2), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(M))
+        a, _ = dl.step(s0, u)
+        b, _ = trainer.lda_iteration(dl.cfg, dl.shard, s0, uniforms=u)
+        torch.cuda.synchronize()
+        out[f"{mode}-{comp}-{M}-{overlap}"] = (
+            torch.equal(a.z, b.z) and torch.equal(a.phi_vk, b.phi_vk)
+            and torch.equal(a.phi_sum, b.phi_sum))
+    # fit over the mesh with every sweep sync-guarded: the collectives and
+    # the byte wire make the host wait on the device nowhere
+    from repro_torch.train import fit
+
+    for M, overlap in ((1, False), (2, True)):
+        cfg = trainer.LDAConfig(num_topics=64, tile_tokens=32,
+                                micro_chunks=M, compressed_sync=True,
+                                sync_overlap=overlap)
+        try:
+            res = fit(corpus, cfg, 2, meshes["1d"], sanitize=True)
+            out[f"sanitize-{M}"] = (int(res.state.phi_vk.sum())
+                                    == corpus.num_tokens)
+        except RuntimeError as e:
+            out[f"sanitize-{M}"] = f"{type(e).__name__}: {e}"
+    torch.save(out, out_path)
+
+
+@pytest.fixture(scope="module")
+def nccl_results(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs only there")
+    from repro_torch.distributed import launch
+
+    root = tmp_path_factory.mktemp("nccl")
+    launch.spawn(_nccl_rank, 1, args=(str(root / "out.pt"),),
+                 device_type="cuda", store_dir=str(root))
+    return torch.load(root / "out.pt")
+
+
+def test_nccl_byte_wire_matches_int32_all_reduce(nccl_results):
+    print("NCCL and int16:", nccl_results["nccl_int16"])
+    assert nccl_results["wire_wraps"] and nccl_results["wire_exact"]
+
+
+@pytest.mark.parametrize("mode,comp,M,overlap", MESH_CASES)
+def test_nccl_mesh_step_matches_lda_iteration(nccl_results, mode, comp, M,
+                                              overlap):
+    assert nccl_results[f"{mode}-{comp}-{M}-{overlap}"]
+
+
+@pytest.mark.parametrize("M", [1, 2])
+def test_nccl_fit_makes_no_host_sync(nccl_results, M):
+    """fit(mesh=...) under sanitize: a host-device sync inside a sweep,
+    the syncs and (M = 2) the overlapped per-chunk syncs included, raises."""
+    assert nccl_results[f"sanitize-{M}"] is True

@@ -166,7 +166,10 @@ def _tiny_training():
 
 def test_fit_defaults_to_cuda(monkeypatch):
     """fit with no device means the card: without one it raises, and runs
-    on the CPU only when asked."""
+    on the CPU only when asked.  A cuda mesh without a card raises the same
+    error: no path falls back to gloo or to the CPU."""
+    import types
+
     from repro_torch.train import fit
 
     corpus, cfg = _tiny_training()
@@ -175,8 +178,8 @@ def test_fit_defaults_to_cuda(monkeypatch):
         fit(corpus, cfg, 1)
     res = fit(corpus, cfg, 1, device="cpu")
     assert res.state.z.device == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        fit(corpus, cfg, 1, mesh=object(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit(corpus, cfg, 1, mesh=types.SimpleNamespace(device_type="cuda"))
 
 
 def test_launch_train_defaults_to_cuda(monkeypatch, tmp_path):

@@ -15,6 +15,7 @@ Tolerances:
   three seeds within 0.15 nats/token after 20 iterations.
 """
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -509,13 +510,43 @@ def test_nytimes_config_matches_jax():
 
 
 @pytest.mark.parametrize("flags,slice_no", [
-    (["--workload", "lm"], "slice 4"), (["--mode", "2d"], "slice 3"),
-    (["--host-devices", "4"], "slice 3"), (["--distributed"], "slice 3")])
-def test_launch_train_refuses_mesh_flags(flags, slice_no, capsys):
+    (["--workload", "lm"], "slice 4"), (["--mode", "2d"], None),
+    (["--host-devices", "2", "--mode", "2d", "--compressed-sync"], None),
+    (["--distributed"], None)])
+def test_launch_train_refuses_mesh_flags(flags, slice_no, tmp_path, capfd):
+    """--workload lm is refused; the mesh flags train: --mode 2d alone on
+    one device (as the reference does), --host-devices as spawned gloo
+    ranks, --distributed from a 1-rank torchrun environment with a file
+    store (in a process of its own: no process group in the test's)."""
+    import subprocess
+    import sys
+
     from repro_torch.launch import train
 
-    assert train.main(flags + ["--device", "cpu"]) != 0
-    assert slice_no in capsys.readouterr().err
+    tiny = ["--device", "cpu", "--iters", "2", "--topics", "8", "--scale",
+            "0.0001", "--ckpt-dir", str(tmp_path / "c"), "--ckpt-every", "1"]
+    if slice_no:
+        assert train.main(flags + ["--device", "cpu"]) != 0
+        assert slice_no in capfd.readouterr().err
+        return
+    if flags == ["--distributed"]:
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   PYTHONPATH=os.path.join(os.path.dirname(__file__), "..",
+                                           "src"))
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *flags,
+             "--init-method", f"file://{tmp_path / 'store'}", *tiny],
+            capture_output=True, text=True, env=env, timeout=300)
+        assert res.returncode == 0, res.stderr
+        out = res.stdout
+        assert "[done] 1 ranks (1d, int32 sync)" in out
+    else:
+        assert train.main(flags + tiny) == 0
+        out = capfd.readouterr().out
+        assert "[done]" in out
+        if "--host-devices" in flags:
+            assert "[done] 2 ranks (2d, int16 bytes sync)" in out
+    assert tckpt.CheckpointManager(str(tmp_path / "c")).list_steps() == [1, 2]
 
 
 def test_launch_train_runs_on_cpu(tmp_path, capsys):
