@@ -27,7 +27,22 @@ L in {32, 64, 128, 256}; 8 burn-in + 4 sample sweeps):
    and spread: one cold burst's p99 spreads too widely to resolve a
    change), then hot-swaps a second planted model and serves more; K3's
    launch counter is read around it;
-6. the same storm warm and traced: the host span breakdown.
+6. the same storm warm and traced: the host span breakdown;
+16. V-sharded serving at the same width (run here, while the planted
+    snapshots are live; numbered after the training phases it follows in
+    the port's history): the planted model split into ``SHARDS`` word
+    blocks, one a card when there are that many cards, else all on cuda:0
+    (``placement``); one B = 32, L = 256 batch of the served docs through
+    ``fold_in_sharded`` under psum and all2all against the dense
+    ``fold_in`` on the same drawn (z0, uniforms), both through K3; each
+    comm's device time (``time_ms``) and wall time a call (host routing
+    plan + launches + synchronise) beside the dense call's; an engine per
+    comm on the sharded snapshot (a cold and ``WARM_BURSTS`` warm bursts of
+    the 256 docs, p99 and docs/s beside phase 5's), the all2all one then
+    hot-swapped sharded -> dense -> sharded (the second planted model); a
+    ``.sharded`` directory of the planted model written, read back and
+    assembled, and read once more with one byte flipped.  K3's counter is
+    read around the engines' runs and added to the kernels line.
 
 Training (``configs/lda_nytimes.CONFIG`` on ``nytimes_like(1.0)``:
 D = 299,752 docs, V = 101,636, ~99.5M tokens, Zipf 1.1):
@@ -90,6 +105,13 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
 * serving: every theta sums to 1 (atol 1e-4), the planted major topic is
   recovered on >= 90% of documents in every burst, every answer after the
   swap carries the new model version, and K3 was launched;
+* sharded serving: theta, top_topics, sparse_frac and mean_s_over_sq equal
+  the dense fold-in's bit for bit under both comms; >= 90% recovery in
+  every burst and after each swap, the version bumped by every swap; the
+  engine's ``comm_bytes_moved`` equal to the sum of the bytes of the plans
+  it made, one H2D copy a batch; K3 launched; the reloaded directory's phi
+  equal to the model's, and the flipped byte refused
+  (``SnapshotIntegrityError``);
 * training: K1 and K2 launched once per iteration plus once for fit's
   warm-up iteration, the last LL/token above the first, phi == K4(z)
   exactly, phi_sum == phi.sum(0), phi.sum() == number of tokens, every z
@@ -137,6 +159,8 @@ MESH_2D_ITERS = 3
 BATCH, BUCKETS, SWEEPS = 32, (32, 64, 128, 256), (8, 4)
 SERVE_DOCS, SWAP_DOCS = 256, 32
 WARM_BURSTS = 7                # the cold burst's docs again, engine warm
+SHARDS = 4                     # phase 16's phi blocks
+COMMS = ("psum", "all2all")
 
 
 def emit(phase: str, **fields):
@@ -260,12 +284,13 @@ HOLD_CYCLES = 100_000_000      # ~57 ms of the card's clock: the host
 #                                enqueues the timed calls meanwhile
 
 
-def time_ms(fn, n=20, warm=3):
+def time_ms(fn, n=20, warm=3, hold=1):
     """Device time of one call of ``fn``: after ``warm`` calls, CUDA events
     around ``n`` calls run back to back, over n.  The stream is held by a
-    spin kernel while the host enqueues them, so a kernel shorter than its
-    Python launch path is timed on the card, not on the host (for a
-    function that synchronises, the host's time stays in)."""
+    spin kernel (``hold`` x ~57 ms) while the host enqueues them, so a
+    kernel shorter than its Python launch path is timed on the card, not
+    on the host (for a function that synchronises, the host's time stays
+    in)."""
     import torch
 
     for _ in range(warm):
@@ -273,7 +298,7 @@ def time_ms(fn, n=20, warm=3):
     torch.cuda.synchronize()
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOLD_CYCLES)
+    torch.cuda._sleep(HOLD_CYCLES * hold)
     s.record()
     for _ in range(n):
         fn()
@@ -901,6 +926,214 @@ def train_phases(card: str, scale: float, iters: int,
     ]
 
 
+def sharded_phase(card, snap, snap2, docs, majors, docs2, majors2,
+                  dense_warm: dict, devices=None) -> int:
+    """Phase 16 (module docstring): V-sharded serving of the planted model
+    at full width.  Returns K3's launches on the sharded engines' runs.
+    ``devices``: the blocks' devices (by default the placement rule of the
+    docstring; a CPU rehearsal passes CPU entries)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.fold_in import kernel, ops
+    from repro_torch.launch import serve_lda
+    from repro_torch.serve import (InferConfig, SnapshotIntegrityError,
+                                   load_sharded_snapshot,
+                                   save_sharded_snapshot, shard_snapshot)
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.infer import (_host_batch_from_buffer,
+                                         fold_in_config, fold_in_request,
+                                         pack_docs, pack_request_buffer,
+                                         routing_plan)
+
+    if devices is not None:
+        placement = "given: " + ", ".join(map(str, devices))
+    elif torch.cuda.device_count() >= SHARDS:
+        devices = tuple(torch.device("cuda", i) for i in range(SHARDS))
+        placement = f"one block a card on cuda:0..{SHARDS - 1}"
+    else:
+        devices = (torch.device("cuda", 0),) * SHARDS
+        placement = f"{SHARDS} blocks on cuda:0"
+    t0 = time.perf_counter()
+    sh = shard_snapshot(snap, SHARDS, devices=devices)
+    sh2 = shard_snapshot(snap2, SHARDS, devices=devices)
+    shard_s = (time.perf_counter() - t0) / 2
+
+    # -- the sharded fold-in against the dense one, the same randoms -------
+    burn_in, samples = SWEEPS
+    Lb, K = BUCKETS[-1], snap.num_topics
+    cfgs = {c: InferConfig(burn_in=burn_in, samples=samples, comm=c)
+            for c in COMMS}
+    tokens, mask = pack_docs(docs[:BATCH], Lb)
+    gen = torch.Generator(device=snap.device)
+    gen.manual_seed(17)
+    randoms = ops.draw_fold_in_randoms(gen, BATCH, Lb, K, sum(SWEEPS),
+                                       snap.device)
+    dense = fold_in_config(snap, tokens, mask, randoms, cfgs["psum"])
+    fields = ("theta", "top_topics", "sparse_frac", "mean_s_over_sq")
+    equal, ssq_diff = {}, {}
+    for comm, cfg in cfgs.items():
+        got = fold_in_config(sh, tokens, mask, randoms, cfg)
+        equal[comm] = {f: bool(torch.equal(getattr(got, f),
+                                           getattr(dense, f)))
+                       for f in fields}
+        ssq_diff[comm] = float(got.mean_s_over_sq - dense.mean_s_over_sq)
+
+    # -- device time and wall time a call, the engine's call path ----------
+    packed = pack_request_buffer(docs[:BATCH], BATCH, Lb, 23)
+    buf = torch.from_numpy(packed).to(snap.device)
+    plan = routing_plan(sh, *_host_batch_from_buffer(packed))
+
+    def call(s, comm):
+        cap = None
+        if comm == "all2all":     # the engine plans on the host each batch
+            cap = routing_plan(s, *_host_batch_from_buffer(packed)).capacity
+        return fold_in_request(s, buf, cfgs[comm], seed=23, capacity=cap)
+
+    def wall_ms(fn, n=20):
+        out = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(out))
+
+    # a 4x hold: all2all's host path (3-8 ms a call) would outrun the
+    # default one over 20 calls and time the host instead of the card
+    timing = {"dense": dict(ms=time_ms(lambda: call(snap, "psum"), hold=4),
+                            wall_ms=wall_ms(lambda: call(snap, "psum")))}
+    for comm in COMMS:
+        timing[comm] = dict(ms=time_ms(lambda: call(sh, comm), hold=4),
+                            wall_ms=wall_ms(lambda: call(sh, comm)))
+    emit("serve_sharded_fold_in", card=card, placement=placement,
+         shards=SHARDS, devices=[str(d) for d in devices], B=BATCH, L=Lb,
+         shard_s=shard_s, equal=equal, mean_s_over_sq_diff=ssq_diff,
+         timing=timing, capacity=plan.capacity,
+         routed_tokens=plan.routed_tokens, a2a_bytes=plan.a2a_bytes,
+         psum_bytes=plan.psum_bytes)
+    for comm, eq in equal.items():
+        if not all(eq.values()):
+            raise AssertionError(f"sharded fold-in ({comm}) differs from the "
+                                 f"dense one: {eq}")
+
+    # -- the main path: an engine per comm, then swaps across layouts ------
+    planned = []     # the bytes of every plan the engines make
+    real_plan, real_psum = engine_mod.routing_plan, engine_mod.psum_gather_bytes
+
+    def plan_and_record(*a):
+        p = real_plan(*a)
+        planned.append(p.a2a_bytes)
+        return p
+
+    def psum_and_record(*a):
+        planned.append(real_psum(*a))
+        return planned[-1]
+
+    engine_mod.routing_plan = plan_and_record
+    engine_mod.psum_gather_bytes = psum_and_record
+    kernel.fold_in_docs.launches = 0
+    rows = {}
+    try:
+        for comm in COMMS:
+            del planned[:]
+            args = serve_lda.build_argparser().parse_args(
+                ["--snapshot", "unused.npz", "--no-trace", "--comm", comm])
+            model, engine = serve_lda.make_engine(args, sh)
+            swaps = {}
+            try:
+                cold = burst(engine, docs, majors)
+                warm = [burst(engine, docs, majors)
+                        for _ in range(WARM_BURSTS)]
+                if comm == "all2all":          # sharded -> dense -> sharded
+                    for name, new in (("dense", snap2), ("sharded", sh2)):
+                        v = model.publish(new)
+                        res = engine.infer_many(docs2, timeout=300.0)
+                        swaps[name] = dict(
+                            version=v,
+                            versions_ok=all(r["model_version"] == v
+                                            for r in res),
+                            recovered=float(np.mean(
+                                [int(r["theta"].argmax()) == m
+                                 for r, m in zip(res, majors2)])))
+                stats = engine.stats()
+            finally:
+                engine.stop()
+            p99s = [w["p99_ms"] for w in warm]
+            rates = [w["docs_per_sec"] for w in warm]
+            rows[comm] = dict(
+                cold=cold, warm_p99_ms_median=float(np.median(p99s)),
+                warm_p99_ms_min=min(p99s), warm_p99_ms_max=max(p99s),
+                warm_docs_per_sec_median=float(np.median(rates)),
+                warm_docs_per_sec_min=min(rates),
+                warm_docs_per_sec_max=max(rates),
+                recovered_min=min([cold["recovered"]]
+                                  + [w["recovered"] for w in warm]),
+                batches=stats["batches"],
+                h2d_transfers=stats["h2d_transfers"],
+                comm_bytes_moved=stats["comm_bytes_moved"],
+                planned_bytes=float(sum(planned)), plans=len(planned),
+                swaps=swaps)
+    finally:
+        engine_mod.routing_plan = real_plan
+        engine_mod.psum_gather_bytes = real_psum
+    launches = kernel.fold_in_docs.launches
+    emit("serve_sharded", card=card, placement=placement, docs=len(docs),
+         engines=rows, kernel_launches=launches,
+         dense_warm_p99_ms_median=dense_warm["p99_ms_median"],
+         dense_warm_docs_per_sec_median=dense_warm["docs_per_sec_median"])
+    for comm, r in rows.items():
+        if r["recovered_min"] < RECOVERY:
+            raise AssertionError(f"{comm}: a sharded burst recovered "
+                                 f"{r['recovered_min']} of planted topics")
+        if r["comm_bytes_moved"] != r["planned_bytes"] or r["plans"] < 1:
+            raise AssertionError(f"{comm}: comm_bytes_moved "
+                                 f"{r['comm_bytes_moved']} != the plans' "
+                                 f"{r['planned_bytes']}")
+        if r["h2d_transfers"] != r["batches"]:
+            raise AssertionError(f"{comm}: {r['h2d_transfers']} H2D copies "
+                                 f"for {r['batches']} batches")
+    versions = [s["version"] for s in rows["all2all"]["swaps"].values()]
+    if versions != [2, 3] or not all(
+            s["versions_ok"] and s["recovered"] >= RECOVERY
+            for s in rows["all2all"]["swaps"].values()):
+        raise AssertionError(f"hot-swaps: {rows['all2all']['swaps']}")
+    if launches < 1:
+        raise AssertionError("the sharded engines never launched K3")
+
+    # -- the .sharded directory of the planted model ----------------------
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        path = save_sharded_snapshot(os.path.join(tmp, "planted.sharded"), sh)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_sharded_snapshot(path, devices=devices)
+        read_s = time.perf_counter() - t0
+        same = bool(torch.equal(back.assemble().phi_vk, snap.phi_vk)
+                    and torch.equal(back.phi_sum, snap.phi_sum))
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        del back
+        shard = os.path.join(path, "shard_0002.npz")
+        raw = bytearray(open(shard, "rb").read())
+        raw[len(raw) // 2] ^= 0xFF
+        open(shard, "wb").write(bytes(raw))
+        try:
+            load_sharded_snapshot(path, devices=devices)
+            refused = False
+        except SnapshotIntegrityError:
+            refused = True
+    emit("serve_sharded_disk", card=card, write_s=write_s, read_s=read_s,
+         bytes_on_disk=size, phi_equal=same, corrupt_refused=refused)
+    if not (same and refused):
+        raise AssertionError("the .sharded round trip failed")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1057,6 +1290,12 @@ def main() -> int:
     emit("serve_traced", card=card, docs=len(docs), wall_s=traced_wall,
          spans={k: dict(count=n, total_ms=tot, mean_ms=tot / n)
                 for k, (n, tot) in sorted(spans.items())})
+
+    # -- 16. V-sharded serving at full width --------------------------------
+    launches += sharded_phase(
+        card, snap, snap2, docs, majors, docs2, majors2,
+        dict(p99_ms_median=float(np.median(p99s)),
+             docs_per_sec_median=float(np.median(rates))))
 
     main_row = rows[-1]
     k3_row = {

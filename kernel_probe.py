@@ -9,6 +9,9 @@ and the phi-rebuild kernel K4 (``phi_update.cu``) and the fold-in kernel K3
                                              # with this checkout's time_ms
     python3 kernel_probe.py --serve-of DIR   # cold + warm serving bursts
                                              # through DIR's engine
+    python3 kernel_probe.py --serve-sharded N   # V-sharded serving, N phi
+                                                # blocks, one a card (else
+                                                # round-robin over cards)
 
 Each source is built several ways with ``-D``, one ``nvcc`` each, all
 started together:
@@ -208,6 +211,190 @@ def serve_of(checkout) -> int:
     return 0
 
 
+def crossed_bytes(sh, comm: str, B: int, L: int, capacity: int,
+                  n_sweeps: int) -> int:
+    """Bytes one batch's copies move between two different cards, from the
+    copies ``serve/infer.py`` makes: psum sends the (B, L) int64 ids to each
+    other card and brings back its (B, L, K) int32 partial; all2all sends
+    each other card its doc slice's ids, mask, z0 and uniforms, every
+    (requester, owner) pair on two cards a (C,) int32 bucket out and its
+    (C, K) int32 rows back, and each slice's kept per-doc partials home.
+    (The engine's ``comm_bytes_moved`` counts the reference's measure: a
+    ring all-reduce for psum.)"""
+    from repro_torch.distributed.partition import (doc_slice_bounds,
+                                                   doc_slice_owner)
+
+    K, lead, devs = sh.num_topics, sh.device, sh.devices
+    if comm == "psum":
+        return sum(B * L * 8 + B * L * K * 4 for d in devs if d != lead)
+    _, Bs = doc_slice_bounds(B, len(devs))
+    own, _ = doc_slice_owner(B, len(devs))
+    total = 0
+    for s, d in enumerate(devs):
+        if d != lead:
+            total += Bs * L * (8 + 1 + 4 + n_sweeps * 8)
+            total += int((own == s).sum()) * (K * 4 + 8)
+        total += sum(capacity * 4 + capacity * K * 4
+                     for o in devs if o != d)
+    return total
+
+
+def device_work(fn, n=5) -> dict:
+    """Kernels (and copies) a call of ``fn`` runs on the cards, their
+    summed device time and the host's CUDA API calls, a call, from
+    ``torch.profiler`` over ``n`` calls after one untraced call: beside
+    ``time_ms`` it tells device work from gaps (many short kernels, or a
+    call that waits on the device)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    api: dict[str, int] = {}     # the host's CUDA runtime / driver calls
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("cu"):
+            api[e.name] = api.get(e.name, 0) + 1
+    return dict(kernels_per_call=len(dev) / n,
+                kernel_ms_per_call=sum(e.time_range.elapsed_us()
+                                       for e in dev) / n / 1e3,
+                api_calls_per_call={k: c / n for k, c in sorted(
+                    api.items(), key=lambda kv: -kv[1])})
+
+
+def serve_sharded(n: int) -> int:
+    """V-sharded serving of chip_smoke's planted NYTimes-width model in
+    ``n`` phi blocks, one a card (round-robin over the cards when there
+    are fewer): for the dense path on one card and for each comm, the
+    device time of one B = 32, L = 256 batch (``time_ms``), the kernels it
+    runs and their summed time (``device_work``), its wall time a call,
+    the bytes it moves between cards, and an engine's cold and
+    ``WARM_BURSTS`` warm bursts of the 256 docs (p99, docs/s,
+    ``comm_bytes_moved``); then the parts on cuda:0 alone: psum's row
+    assembly, one all2all slice's routed rows, and K3 on that slice beside
+    K3 on the whole batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import lda_nytimes
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve_lda
+    from repro_torch.distributed.partition import doc_slice_bounds
+    from repro_torch.kernels.fold_in import kernel, ops
+    from repro_torch.serve import InferConfig, shard_snapshot
+    from repro_torch.serve import infer
+    from repro_torch.serve.infer import (_host_batch_from_buffer,
+                                         fold_in_request,
+                                         pack_request_buffer, routing_plan)
+
+    if not torch.cuda.is_available():
+        print("kernel_probe: no CUDA card visible; nothing was run",
+              file=sys.stderr)
+        return 2
+    cards = torch.cuda.device_count()
+    card = cs.card_line()
+    _build.load("fold_in")
+    V, K = lda_nytimes.FULL["num_words"], lda_nytimes.NUM_TOPICS
+    snap = serve_lda.planted_snapshot(V, K, seed=0)
+    _, home = serve_lda.planted_model(V, K, seed=0)
+    docs, majors = serve_lda.planted_docs(
+        home, K, cs.SERVE_DOCS, lda_nytimes.FULL["avg_doc_len"], seed=1)
+    sh = shard_snapshot(snap, n, devices=tuple(
+        torch.device("cuda", i % cards) for i in range(n)))
+    burn_in, samples = cs.SWEEPS
+    B, L = cs.BATCH, cs.BUCKETS[-1]
+    packed = pack_request_buffer(docs[:B], B, L, 23)
+    buf = torch.from_numpy(packed).to(snap.device)
+    plan = routing_plan(sh, *_host_batch_from_buffer(packed))
+    rows = {}
+    for comm, model in (("dense", snap), ("psum", sh), ("all2all", sh)):
+        cfg = InferConfig(burn_in=burn_in, samples=samples,
+                          comm="psum" if comm == "dense" else comm)
+
+        def call():
+            cap = None
+            if comm == "all2all":
+                cap = routing_plan(sh, *_host_batch_from_buffer(
+                    packed)).capacity
+            return fold_in_request(model, buf, cfg, seed=23, capacity=cap)
+
+        walls = []
+        for _ in range(20):
+            t = time.perf_counter()
+            call()
+            for d in range(cards):
+                torch.cuda.synchronize(d)
+            walls.append((time.perf_counter() - t) * 1e3)
+        args = serve_lda.build_argparser().parse_args(
+            ["--snapshot", "unused.npz", "--no-trace", "--comm", cfg.comm])
+        _, engine = serve_lda.make_engine(args, model)
+        try:
+            cold = cs.burst(engine, docs, majors)
+            warm = [cs.burst(engine, docs, majors)
+                    for _ in range(cs.WARM_BURSTS)]
+            stats = engine.stats()
+        finally:
+            engine.stop()
+        rows[comm] = dict(
+            ms=cs.time_ms(call, hold=4), wall_ms=float(np.median(walls)),
+            **device_work(call),
+            crossed_bytes=(0 if comm == "dense" else crossed_bytes(
+                sh, comm, B, L, plan.capacity, sum(cs.SWEEPS))),
+            cold=cold,
+            p99_ms_median=float(np.median([w["p99_ms"] for w in warm])),
+            docs_per_sec_median=float(np.median(
+                [w["docs_per_sec"] for w in warm])),
+            recovered_min=min(w["recovered"] for w in [cold] + warm),
+            batches=stats["batches"],
+            comm_bytes_moved=stats["comm_bytes_moved"])
+    # the parts, on cuda:0: psum's rows; slice 0's routed rows and its K3
+    tokens, mask = infer._unpack_request_buffer(buf)
+    tokens = tokens.long()
+    _, Bs = doc_slice_bounds(B, n)
+    rep0 = sh.replicas[0]
+    gen = torch.Generator(device=snap.device)
+    gen.manual_seed(5)
+    z0, uni = ops.draw_fold_in_randoms(gen, B, L, K, sum(cs.SWEEPS),
+                                       snap.device)
+    kw = dict(num_words_total=V, burn_in=burn_in, samples=samples,
+              ell_capacity=min(L, K))
+
+    def k3_args(rows, b):
+        return (rows, snap.phi_sum, snap.hyper,
+                uni[:, :b].transpose(0, 1).contiguous(),
+                mask[:b].to(torch.int32).contiguous(), z0[:b].contiguous())
+
+    routed = infer._rows_routed(sh, rep0, tokens[:Bs], mask[:Bs],
+                                plan.capacity)
+    whole = snap.phi_vk[tokens]
+    parts = dict(
+        psum_rows_ms=cs.time_ms(lambda: infer._rows_psum(sh, tokens)),
+        dense_gather_ms=cs.time_ms(lambda: snap.phi_vk[tokens]),
+        slice_routed_rows_ms=cs.time_ms(lambda: infer._rows_routed(
+            sh, rep0, tokens[:Bs], mask[:Bs], plan.capacity)),
+        slice_k3_ms=cs.time_ms(lambda: kernel.fold_in_variant(
+            (), *k3_args(routed, Bs), **kw)),
+        slice_shape=kernel.launch_shape(Bs, L, K, min(L, K)),
+        batch_k3_ms=cs.time_ms(lambda: kernel.fold_in_variant(
+            (), *k3_args(whole, B), **kw)),
+        batch_shape=kernel.launch_shape(B, L, K, min(L, K)))
+    cs.emit("serve_sharded_cards", card=card, cards=cards, shards=n,
+            devices=[str(d) for d in sh.devices], B=B, L=L, Bs=Bs,
+            capacity=plan.capacity, routed_tokens=plan.routed_tokens,
+            plan_a2a_bytes=plan.a2a_bytes, plan_psum_bytes=plan.psum_bytes,
+            rows=rows, parts_on_cuda0=parts)
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -215,6 +402,8 @@ def main() -> int:
         return smoke_of(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--serve-of":
         return serve_of(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--serve-sharded":
+        return serve_sharded(int(sys.argv[2]))
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA card visible; nothing was run",
               file=sys.stderr)

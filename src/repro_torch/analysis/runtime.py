@@ -1,11 +1,19 @@
-"""Runtime lock sanitizer for the serving engine (``repro.analysis.runtime``
-without the JAX guards; the debug-NaN and transfer-guard analogues are
-still open).
+"""Runtime sanitizers (``repro.analysis.runtime`` without the JAX guards;
+the debug-NaN analogue is still open).
 
-A no-op unless enabled (``EngineConfig(sanitize=True)``), so production
-paths pay one global-bool check per assertion site.
+* the lock sanitizer of the serving engine: a no-op unless enabled
+  (``EngineConfig(sanitize=True)``), so production paths pay one
+  global-bool check per assertion site;
+* ``sync_guard``, the counterpart of the reference's transfer guard: under
+  it a host-device synchronisation on the card is an error (training
+  sweeps under ``fit(sanitize=True)``, serving launches under
+  ``EngineConfig(sanitize=True)``).
 """
 from __future__ import annotations
+
+import contextlib
+
+import torch
 
 _LOCK_SANITIZER = False
 
@@ -42,3 +50,19 @@ def assert_lock_held(lock) -> None:
         lock.release()
         raise LockNotHeldError(
             "guarded section entered without holding its lock")
+
+
+@contextlib.contextmanager
+def sync_guard(enabled: bool, device: torch.device):
+    """Make any host-device synchronisation inside the block an error.
+    The mode is process-wide: another thread that syncs meanwhile fails
+    too."""
+    if not (enabled and device.type == "cuda"):
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)

@@ -16,9 +16,11 @@ phi are counts rebuilt exactly from it.  A checkpoint is therefore:
 * elastic — restore re-tiles z onto whatever tiling the run has.
 
 Snapshots publish the derived frozen model (phi + hyperparameters) to the
-serving side, dense ``.npz`` only: the V-sharded layout comes with sharded
-serving.  A state trained over a mesh publishes through its partition
-(``publish_snapshot(state, partition=dl)``), which writes the canonical phi.
+serving side, as dense ``.npz`` files or V-sharded ``.sharded`` directories
+(``shards=N``; listing and pruning treat both alike).  A state trained over
+a mesh publishes through its partition (``publish_snapshot(state,
+partition=dl)``), which writes the canonical phi, or a 2d trainer's own
+word blocks.
 """
 from __future__ import annotations
 
@@ -37,7 +39,6 @@ import torch
 from repro_torch.core.corpus import Corpus
 
 _FORMAT_VERSION = 1
-SHARDED_SUFFIX = ".sharded"   # the reference's sharded snapshot directories
 
 
 def corpus_fingerprint(corpus: Corpus) -> str:
@@ -146,42 +147,89 @@ class CheckpointManager:
         return None
 
     # -- serving snapshots --------------------------------------------------
-    def snapshot_path(self, iteration: int) -> str:
-        """Where the dense snapshot of ``iteration`` is written."""
-        return os.path.join(self.dir, f"snapshot_{int(iteration):08d}.npz")
+    def snapshot_path(self, iteration: int, sharded: bool = False) -> str:
+        """Where the snapshot of ``iteration`` is written: a dense ``.npz``
+        or a ``.sharded`` directory."""
+        from repro_torch.serve.snapshot import SHARDED_SUFFIX
 
-    def publish_snapshot(self, state, alpha: float | None = None,
+        ext = SHARDED_SUFFIX if sharded else ".npz"
+        return os.path.join(self.dir, f"snapshot_{int(iteration):08d}{ext}")
+
+    def publish_snapshot(self, state=None, alpha: float | None = None,
                          beta: float | None = None,
                          num_words_total: int | None = None, vocab=None,
                          meta: dict | None = None,
                          shards: int | None = None, *,
-                         partition=None) -> str:
-        """Write ``state``'s phi as a dense serving snapshot
-        ``snapshot_<iteration>.npz`` and prune to the newest ``keep``.
+                         partition=None, iteration: int | None = None,
+                         blocks=None, phi_sum=None, shard_of=None,
+                         local_id=None) -> str:
+        """The one snapshot-publish entry point; prunes to the newest
+        ``keep`` snapshots of either layout.  Three call shapes:
 
-        ``partition``: the ``DistributedLDA`` that trained ``state``; it
-        gathers the canonical phi (a collective: every rank calls this),
-        takes alpha and beta from its config, and its rank 0 writes."""
-        if shards and shards > 1:
-            raise NotImplementedError(
-                "V-sharded snapshots come with slice 3 (sharded serving, "
-                "item 9); publish a dense snapshot")
+        * ``publish_snapshot(state, alpha, beta, ..., shards=N)`` — a
+          replicated-phi state: ``snapshot_<iteration>.npz``, or a
+          contiguous-split ``.sharded`` directory when ``shards > 1``;
+        * ``publish_snapshot(state, partition=dl, ..., shards=N)`` — the
+          ``DistributedLDA`` that trained ``state`` publishes the canonical
+          phi or its 2d word blocks (a collective: every rank calls this;
+          alpha and beta come from its config; its rank 0 writes);
+        * ``publish_snapshot(blocks=..., phi_sum=..., shard_of=...,
+          local_id=..., iteration=..., alpha=..., beta=...,
+          num_words_total=...)`` — pre-sharded phi blocks (any iterable,
+          read one at a time), no dense phi anywhere.
+        """
         if partition is not None:
-            return partition._publish(self, state, vocab=vocab, meta=meta)
-        if alpha is None or beta is None:
-            raise TypeError("publish_snapshot needs (state, alpha, beta) "
-                            "or a partition=")
+            return partition._publish(self, state, vocab=vocab, meta=meta,
+                                      shards=shards)
+        if blocks is not None:
+            required = dict(iteration=iteration, phi_sum=phi_sum,
+                            shard_of=shard_of, local_id=local_id,
+                            alpha=alpha, beta=beta,
+                            num_words_total=num_words_total)
+            missing = [k for k, v in required.items() if v is None]
+            if missing:
+                raise TypeError(
+                    f"publish_snapshot(blocks=...) missing {missing}")
+            return self._publish_blocks(
+                iteration, blocks, phi_sum, shard_of, local_id, alpha=alpha,
+                beta=beta, num_words_total=num_words_total, meta=meta,
+                vocab=vocab)
+        if state is None or alpha is None or beta is None:
+            raise TypeError("publish_snapshot needs (state, alpha, beta), "
+                            "a partition=, or blocks=")
         from repro_torch.serve import snapshot as snap_mod
 
         it = int(_host(state.iteration))
         snap = snap_mod.snapshot_from_state(
             state, alpha=alpha, beta=beta, num_words_total=num_words_total,
             vocab=vocab, meta=dict(meta or {}, iteration=it), device="cpu")
-        out = snap_mod.save_snapshot(self.snapshot_path(it), snap)
+        if shards and shards > 1:
+            out = snap_mod.save_sharded_snapshot(
+                self.snapshot_path(it, sharded=True), snap, shards)
+        else:
+            out = snap_mod.save_snapshot(self.snapshot_path(it), snap)
+        self._prune_snapshots()
+        return out
+
+    def _publish_blocks(self, iteration: int, blocks, phi_sum, shard_of,
+                        local_id, *, alpha: float, beta: float,
+                        num_words_total: int, meta: dict | None = None,
+                        vocab=None) -> str:
+        """Write pre-sharded phi blocks (a 2d trainer's word shards) as a
+        serving snapshot, no dense phi anywhere."""
+        from repro_torch.serve import snapshot as snap_mod
+
+        out = snap_mod.write_sharded_snapshot(
+            self.snapshot_path(iteration, sharded=True), blocks, phi_sum,
+            shard_of, local_id, alpha=alpha, beta=beta,
+            num_words_total=num_words_total,
+            meta=dict(meta or {}, iteration=int(iteration)), vocab=vocab)
         self._prune_snapshots()
         return out
 
     def _snapshot_names(self) -> list[str]:
+        from repro_torch.serve.snapshot import SHARDED_SUFFIX
+
         names = [fn for fn in os.listdir(self.dir)
                  if fn.startswith("snapshot_")
                  and (fn.endswith(".npz") or fn.endswith(SHARDED_SUFFIX))]

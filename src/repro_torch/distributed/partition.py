@@ -24,7 +24,11 @@ from each shard's word counts, without tiling the others.
 Left out on purpose: ``stack_shards`` (the reference stacks every shard on a
 leading axis for one controller; here each rank holds its own), and
 ``lower_step``/``compile_step`` (``fit``'s warm-up iteration takes their
-place).  The request-side routing of V-sharded serving comes with it.
+place).
+
+The request-side token routing of V-sharded serving (``comm="all2all"``)
+lives here too, as in the reference: the host-side plan (numpy) and the
+bucketing of one doc slice's tokens by owning shard (torch).
 """
 from __future__ import annotations
 
@@ -48,6 +52,137 @@ from repro_torch.kernels.phi_update import ops as phi_ops
 # word occurring fewer than 2**15 times; words at or above the bound take the
 # int32 correction path.  Read at call time, so tests can patch it.
 INT16_FLUX_BOUND = 1 << 15
+
+
+# ---------------------------------------------------------------------------
+# request-side token routing (V-sharded serving, comm="all2all")
+# ---------------------------------------------------------------------------
+# Each shard takes a contiguous slice of the batch's documents, buckets its
+# real tokens' local-row ids by owning shard, the owners gather those phi
+# rows and send them back into batch order; the sweeps then run on the doc
+# slice only.  The bytes moved scale with the tokens routed, not B*L*K.
+
+
+def doc_slice_bounds(num_docs: int, num_shards: int):
+    """Contiguous per-shard document slices covering [0, num_docs).
+
+    Every shard gets the same slice width ``Bs = ceil(B/S)``; when B is not
+    divisible the trailing slices are clamped to ``B - Bs`` and overlap —
+    duplicated docs are computed twice and deduplicated at assembly
+    (``doc_slice_owner``), which keeps draws bit-identical for any B.
+
+    Returns (starts (S,) int32, Bs)."""
+    if num_docs < 1 or num_shards < 1:
+        raise ValueError("num_docs and num_shards must be >= 1")
+    per = -(-num_docs // num_shards)   # ceil
+    starts = np.minimum(np.arange(num_shards, dtype=np.int64) * per,
+                        num_docs - per)
+    return starts.astype(np.int32), int(per)
+
+
+def doc_slice_owner(num_docs: int, num_shards: int):
+    """Deduplication map for overlapping slices: for each doc, the shard
+    whose slice "officially" covers it plus its row within that slice.
+
+    Returns (owner (B,) int64, row (B,) int64)."""
+    starts, per = doc_slice_bounds(num_docs, num_shards)
+    d = np.arange(num_docs, dtype=np.int64)
+    owner = np.minimum(d // per, num_shards - 1)
+    return owner, d - starts[owner]
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenRoutingPlan:
+    """Host-side routing plan for one (tokens, mask) batch.
+
+    ``capacity`` is the per-(requester, owner) bucket size: the measured
+    largest bucket rounded up to a power of two, clamped to the slice size
+    so it can never be exceeded.  The byte counts are measured for this
+    batch, summed over every shard, counting only traffic between shards
+    (a shard's own bucket stays local)."""
+
+    num_shards: int
+    docs_per_shard: int      # Bs — the doc-slice width
+    capacity: int            # per (requester, owner) bucket slots
+    routed_tokens: int       # real (unmasked) tokens routed, duplicates incl.
+    a2a_bytes: int           # ids + rows all_to_all + per-doc result gather
+    psum_bytes: int          # what the dense (B, L, K) psum would have moved
+
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (int(n - 1).bit_length())
+
+
+def psum_gather_bytes(batch: int, length: int, num_topics: int,
+                      num_shards: int) -> int:
+    """Bytes between shards of a ring all-reduce of the (B, L, K) int32
+    gathered rows (reduce-scatter + all-gather), summed over the shards."""
+    return 4 * 2 * (num_shards - 1) * batch * length * num_topics
+
+
+def plan_token_routing(word_shard_of: np.ndarray, tokens: np.ndarray,
+                       mask: np.ndarray, num_shards: int,
+                       num_topics: int) -> TokenRoutingPlan:
+    """Measure one batch's routing load and fix the bucket capacity.
+
+    ``word_shard_of`` is the snapshot's (V,) word->shard map (LPT-balanced
+    for trainer-published snapshots, contiguous for re-split dense ones)."""
+    tokens = np.asarray(tokens)
+    mask = np.asarray(mask, bool)
+    B, L = tokens.shape
+    S = int(num_shards)
+    shard_of = np.asarray(word_shard_of)
+    starts, per = doc_slice_bounds(B, S)
+
+    max_bucket, routed = 0, 0
+    for s in range(S):
+        sl = slice(int(starts[s]), int(starts[s]) + per)
+        owners = shard_of[tokens[sl][mask[sl]]]
+        routed += owners.size
+        if owners.size:
+            max_bucket = max(max_bucket,
+                             int(np.bincount(owners, minlength=S).max()))
+    capacity = min(_next_pow2(max(max_bucket, 1)), per * L)
+
+    K = int(num_topics)
+    off = S * (S - 1)   # (src, dst) pairs that cross between shards
+    a2a = 4 * (off * capacity              # token-id request lists
+               + off * capacity * K        # gathered rows coming back
+               + off * (per * K + 2 * per))  # per-doc theta/sp/ssq gather
+    return TokenRoutingPlan(
+        num_shards=S, docs_per_shard=per, capacity=capacity,
+        routed_tokens=routed, a2a_bytes=a2a,
+        psum_bytes=psum_gather_bytes(B, L, K, S))
+
+
+def route_buckets(owner: torch.Tensor, payload: torch.Tensor,
+                  num_shards: int, capacity: int):
+    """Bucket a flat token stream by owning shard, on the tensors' device
+    and without a host sync.
+
+    ``owner`` (T,) holds each slot's owning shard, or ``num_shards`` for
+    slots that route nowhere (padding).  ``payload`` (T,) is what travels
+    (local phi-row ids).  Returns (send (S, C) int32 payload buckets, src
+    (S, C) int32 flat source position per slot, T where the slot is empty).
+    A slot past the capacity is dropped (the plan's capacity leaves none
+    for real tokens), as are padding slots: both are sent to one spare slot
+    past the (S, C) table before the scatter, which then drops it."""
+    S, C = int(num_shards), int(capacity)
+    T = owner.shape[0]
+    dev = owner.device
+    order = torch.argsort(owner, stable=True)
+    sorted_owner = owner[order]
+    first = torch.searchsorted(sorted_owner,
+                               torch.arange(S, dtype=owner.dtype, device=dev))
+    rank = (torch.arange(T, device=dev)
+            - first[sorted_owner.clamp(0, S - 1).long()])
+    keep = (sorted_owner < S) & (rank < C)
+    slot = torch.where(keep, sorted_owner.long() * C + rank, S * C)
+    send = torch.zeros(S * C + 1, dtype=torch.int32, device=dev)
+    send.index_put_((slot,), payload[order].to(torch.int32))
+    src = torch.full((S * C + 1,), T, dtype=torch.int32, device=dev)
+    src.index_put_((slot,), order.to(torch.int32))
+    return send[:-1].view(S, C), src[:-1].view(S, C)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -367,16 +502,65 @@ class DistributedLDA:
             _all_gather(state.phi_vk, self.model_group).cpu().numpy(),
             self.plan)
 
-    def _publish(self, mgr, state, vocab=None,
-                 meta: dict | None = None) -> str:
-        """Dense snapshot of the canonical phi
-        (``mgr.publish_snapshot(state, partition=self)``): every rank
-        gathers, rank 0 writes; returns the path on every rank."""
-        phi = torch.from_numpy(self.gather_phi(state))
-        if self.rank != 0:
-            return mgr.snapshot_path(int(state.iteration))
-        state_c = state._replace(phi_vk=phi, phi_sum=state.phi_sum.cpu())
+    def _publish(self, mgr, state, vocab=None, meta: dict | None = None,
+                 shards: int | None = None) -> str:
+        """Snapshot of the model (``mgr.publish_snapshot(state,
+        partition=self, shards=N)``), a collective: rank 0 writes, every
+        rank returns the path.
+
+        * ``shards`` unset or 1: the canonical phi, gathered, as a dense
+          ``.npz``;
+        * 2d with ``shards`` equal to the word-shard count: each word
+          shard's own block under the plan's LPT maps
+          (``meta["layout"] = "lpt"``); the ranks of rank 0's model group
+          send their blocks to it one at a time and it writes each as it
+          comes, so no rank holds a (V, K) buffer;
+        * any other ``shards``: the canonical phi gathered and re-split
+          contiguously (``"contiguous"``)."""
+        from repro_torch.serve import snapshot as snap_mod
+
+        it = int(state.iteration)
+        alpha, beta = self.cfg.resolved_alpha(), self.cfg.beta
+        meta_full = dict(meta or {}, mode=self._mode)
+        if not shards or shards <= 1:
+            phi = torch.from_numpy(self.gather_phi(state))
+            if self.rank != 0:
+                return mgr.snapshot_path(it)
+            state_c = state._replace(phi_vk=phi, phi_sum=state.phi_sum.cpu())
+            return mgr.publish_snapshot(
+                state_c, alpha, beta, num_words_total=self.corpus.num_words,
+                vocab=vocab, meta=meta_full)
+
+        plan = self.plan
+        n_word = plan.num_word_shards
+        if self._mode == "2d" and shards == n_word:
+            meta_full["layout"] = "lpt"
+            if self.rank // n_word != 0:      # not in rank 0's model group
+                return mgr.snapshot_path(it, sharded=True)
+            ranks = dist.get_process_group_ranks(self.model_group)
+            block = state.phi_vk.contiguous()
+            if self.rank != 0:
+                dist.send(block, dst=ranks[0])
+                return mgr.snapshot_path(it, sharded=True)
+
+            def blocks():
+                yield block
+                buf = torch.empty_like(block)
+                for src in ranks[1:]:
+                    dist.recv(buf, src=src)
+                    yield buf
+
+            shard_of, local_id = plan.word_shard_of, plan.word_local_id
+            block_iter = blocks()
+        else:
+            meta_full["layout"] = "contiguous"
+            phi = self.gather_phi(state)
+            if self.rank != 0:
+                return mgr.snapshot_path(it, sharded=True)
+            block_iter, shard_of, local_id = snap_mod.split_dense_phi(
+                phi, shards)
         return mgr.publish_snapshot(
-            state_c, self.cfg.resolved_alpha(), self.cfg.beta,
+            iteration=it, blocks=block_iter, phi_sum=state.phi_sum,
+            shard_of=shard_of, local_id=local_id, alpha=alpha, beta=beta,
             num_words_total=self.corpus.num_words, vocab=vocab,
-            meta=dict(meta or {}, mode=self._mode))
+            meta=meta_full)

@@ -63,6 +63,13 @@
 //    the zeros) and, over the count histogram (counts <= L), each count's
 //    first rank; then one warp walks the compacted topics 32 at a time,
 //    ranking equal counts in id order with __match_any_sync.
+//  * a doc's sum of S/(S+Q) does not depend on the launch shape: each token
+//    adds its kept sweeps' ratios in sweep order into its own slot, and one
+//    warp sums the doc's slots in an order fixed by the token index alone
+//    (lane j takes tokens j, j + 32, ... in turn, then a fixed tree over
+//    the lanes).  So a doc gets the same bits in a batch of 32 and in a
+//    V-sharded slice of 8 (serve/infer.py, comm="all2all"), which launch
+//    with other CTAs a doc and warps a CTA.
 //  * delayed counts: every token of a sweep reads the ELL of the theta from
 //    the sweep's start.  A sweep's uniforms are copied into shared memory
 //    with cp.async while the sweep before runs.  Padded tokens (mask == 0)
@@ -105,7 +112,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // Byte offsets of the dynamic shared memory of one CTA (4-byte entries).
 struct Layout {
-  size_t denom, part, tsum, nz, chist, base, ecnt, etpc, z, msk, Q,
+  size_t denom, part, tsum, nz, chist, base, ecnt, etpc, z, msk, Q, tssq,
       uni, bcum, pre, total;
 };
 
@@ -136,6 +143,7 @@ __host__ __device__ inline Layout layout(int L, int K, int P, int bw,
   take(s.z, Lc);
   take(s.msk, Lc);
   take(s.Q, Lc);
+  take(s.tssq, Lc);
   take(s.uni, 4 * (size_t)Lc);       // two sweeps' (u1, u2)
   take(s.bcum, (size_t)Lc * nb);
   take(s.pre, (size_t)warps * prefix_width(P, bw));
@@ -413,9 +421,7 @@ fold_in_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int warp_buf[32];
   __shared__ int red_i[kMaxWarps];
-  __shared__ float red_f[kMaxWarps];
   __shared__ int cta_sp;
-  __shared__ float cta_ssq;
   cg::cluster_group cluster = cg::this_cluster();
 
   const int L = p.L, K = p.K, P = p.P, bw = p.bw, nb = K / bw;
@@ -434,6 +440,7 @@ fold_in_kernel(const Params p) {
   int* z = reinterpret_cast<int*>(smem + sl.z);
   int* msk = reinterpret_cast<int*>(smem + sl.msk);
   float* Q = reinterpret_cast<float*>(smem + sl.Q);
+  float* tssq = reinterpret_cast<float*>(smem + sl.tssq);  // S/(S+Q) a token
   float* uni = reinterpret_cast<float*>(smem + sl.uni);
   float* bcum = reinterpret_cast<float*>(smem + sl.bcum);
   float* pre = reinterpret_cast<float*>(smem + sl.pre)
@@ -461,6 +468,7 @@ fold_in_kernel(const Params p) {
   for (int i = tid; i < nl; i += blockDim.x) {
     z[i] = p.z0[(int64_t)b * L + l0 + i];
     msk[i] = p.mask[(int64_t)b * L + l0 + i] != 0;
+    tssq[i] = 0.f;
   }
   cluster.sync();        // every CTA's counts are zero before any adds
   // theta of z0: each token counts in every CTA of the doc's cluster
@@ -504,7 +512,6 @@ fold_in_kernel(const Params p) {
   if (n_sweeps > 0) stage_uniforms(0);
 
   int sp_acc = 0;        // lane 0 of each warp
-  float ssq_acc = 0.f;
   int buf = 0;
   for (int s = 0;; ++s) {
     // ---- theta: the doc's counts of the current z, added into every CTA
@@ -654,7 +661,7 @@ fold_in_kernel(const Params p) {
         z[i] = znew;
         if (keep) {
           sp_acc += use_sparse;
-          ssq_acc = __fadd_rn(ssq_acc, ratio);
+          tssq[i] = __fadd_rn(tssq[i], ratio);   // its sweeps in order
         }
       }
       __syncwarp();   // pre is rewritten by the warp's next token
@@ -668,31 +675,37 @@ fold_in_kernel(const Params p) {
     p.theta_sum[(int64_t)b * K + k0 + k] = tsum[k];
   for (int i = tid; i < nl; i += blockDim.x)
     p.z_out[(int64_t)b * L + l0 + i] = z[i];
-  if (lane == 0) {
-    red_i[warp] = sp_acc;
-    red_f[warp] = ssq_acc;
-  }
+  if (lane == 0) red_i[warp] = sp_acc;
   __syncthreads();
   if (tid == 0) {
     int si = 0;
-    float sf = 0.f;
-    for (int w = 0; w < warps; ++w) {
-      si += red_i[w];
-      sf = __fadd_rn(sf, red_f[w]);
-    }
+    for (int w = 0; w < warps; ++w) si += red_i[w];
     cta_sp = si;
-    cta_ssq = sf;
   }
   cluster.sync();
-  if (rank == 0 && tid == 0) {
-    int si = 0;
+  if (rank == 0 && warp == 0) {
+    // the doc's S/(S+Q) in an order set by the token index alone: lane j
+    // adds tokens j, j + 32, ... (each from the CTA that holds it), then a
+    // fixed tree over the lanes; padding slots hold 0
     float sf = 0.f;
-    for (int r = 0; r < C; ++r) {
-      si += *cluster.map_shared_rank(&cta_sp, r);
-      sf = __fadd_rn(sf, *cluster.map_shared_rank(&cta_ssq, r));
+    for (int l0 = lane; l0 < L; l0 += 32 * kRowBatch) {
+      float v[kRowBatch];              // the loads in flight together
+#pragma unroll
+      for (int e = 0; e < kRowBatch; ++e) {
+        const int l = l0 + 32 * e, r = l / Lc;
+        v[e] = l < L ? *cluster.map_shared_rank(tssq + (l - r * Lc), r) : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < kRowBatch; ++e) sf = __fadd_rn(sf, v[e]);
     }
-    p.sp_out[b] = si;
-    p.ssq_out[b] = sf;
+    for (int o = 16; o > 0; o >>= 1)
+      sf = __fadd_rn(sf, __shfl_down_sync(kFull, sf, o));
+    if (lane == 0) {
+      int si = 0;
+      for (int r = 0; r < C; ++r) si += *cluster.map_shared_rank(&cta_sp, r);
+      p.sp_out[b] = si;
+      p.ssq_out[b] = sf;
+    }
   }
   cluster.sync();   // no CTA leaves while another reads its shared memory
 }

@@ -32,6 +32,11 @@ HTTP JSON endpoint (stdlib only):
 
 ``--device cpu`` serves with the fold-in's plain PyTorch version; the
 default is the card (``cuda:0``), and the launcher fails if there is none.
+``--shards N`` serves phi word-sharded over N devices (cards ``cuda:0`` ..
+``cuda:N-1``, or N CPU entries with ``--device cpu``; fails with fewer
+cards than shards): a dense snapshot is re-split at load, a ``.sharded``
+directory keeps its own layout, and ``/swap`` re-shards the same way.
+``--comm`` picks how the shards' rows meet (``serve/infer.py``).
 """
 from __future__ import annotations
 
@@ -54,7 +59,9 @@ TRAIN_TOPICS = 32        # K of the bench's trained model, as the reference
 
 def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--snapshot", required=True, help="snapshot .npz path")
+    ap.add_argument("--snapshot", required=True,
+                    help="snapshot path: a dense .npz or a .sharded "
+                         "directory")
     ap.add_argument("--bench", action="store_true",
                     help="self-drive: train-if-missing, storm, hot-swap demo")
     ap.add_argument("--device", default=None,
@@ -91,6 +98,18 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="fold-in sweeps: the CUDA kernel (its plain "
                          "PyTorch version on a CPU device), or the plain "
                          "version everywhere")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="serve phi word-sharded over this many devices; a "
+                         "dense snapshot is re-split at load, a .sharded "
+                         "directory keeps its own layout (0/1 = unsharded)")
+    ap.add_argument("--comm", choices=("auto", "psum", "all2all"),
+                    default="auto",
+                    help="V-sharded gather strategy: 'psum' sums every "
+                         "shard's (B, L, K) rows on the lead device, "
+                         "'all2all' routes only the batch's token ids to "
+                         "the owning shards and moves the gathered rows "
+                         "back, 'auto' uses the snapshot's own tag; draws "
+                         "are bit-identical either way")
     # observability
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write the serving phase-span trace (Chrome trace "
@@ -198,10 +217,24 @@ def make_fault_plan(args):
     return FaultPlan.parse(spec, seed=getattr(args, "fault_seed", 0))
 
 
-def load_model(args, path: str | None = None):
-    from repro_torch.serve import load_snapshot
+def load_model(args, path: str | None = None, fault_plan=None):
+    """Load the snapshot honoring --shards: dense files are re-split into
+    word shards at load time, ``.sharded`` directories keep their layout."""
+    from repro_torch.serve import load_any_snapshot
 
-    return load_snapshot(path or args.snapshot, device=args.device)
+    return load_any_snapshot(path or args.snapshot,
+                             shards=max(args.shards, 0),
+                             comm=None if args.comm == "auto" else args.comm,
+                             fault_plan=fault_plan, device=args.device)
+
+
+def layout(snap) -> str:
+    from repro_torch.serve import ShardedModelSnapshot
+
+    if isinstance(snap, ShardedModelSnapshot):
+        return (f"V-sharded x{snap.num_shards} (comm={snap.comm}) on "
+                f"{', '.join(map(str, snap.devices))}")
+    return f"dense on {snap.device}"
 
 
 def make_engine(args, snap, fault_plan=None):
@@ -216,7 +249,7 @@ def make_engine(args, snap, fault_plan=None):
         max_batch=args.max_batch, max_delay_ms=args.delay_ms,
         length_buckets=tuple(args.length_buckets),
         infer=InferConfig(burn_in=args.burn_in, samples=args.samples,
-                          top_k=args.top_k, impl=args.impl),
+                          top_k=args.top_k, impl=args.impl, comm=args.comm),
         max_queue=getattr(args, "max_queue", 256),
         admission=getattr(args, "admission", "block"),
         default_deadline_ms=getattr(args, "deadline_ms", None),
@@ -303,7 +336,7 @@ def run_bench(args) -> int:
         print(f"[bench] trained + exported in {time.perf_counter() - t0:.1f}s")
     snap = load_model(args)
     print(f"[bench] snapshot: V={snap.num_words} K={snap.num_topics} "
-          f"on {snap.device} meta={snap.meta}")
+          f"meta={snap.meta} phi={layout(snap)}")
 
     # unseen synthetic docs with the same vocabulary
     docs = docs_from_corpus(lda_corpus(
@@ -330,7 +363,7 @@ def run_bench(args) -> int:
     print(f"[bench] training {args.train_iters + 15} iters for the v2 "
           "snapshot")
     _train_and_export(args, extra_iters=15)
-    snap2 = load_model(args)
+    snap2 = load_model(args)   # --shards: the v2 model swaps in sharded too
     v = model.publish(snap2)
     results2 = engine.infer_many(docs[:16])
     moved = max(float(np.abs(r2["theta"] - r1["theta"]).sum())
@@ -440,10 +473,10 @@ def make_http_server(args, model, engine):
 
 def run_http(args) -> int:
     fault_plan = make_fault_plan(args)
-    snap = load_model(args)
+    snap = load_model(args, fault_plan=fault_plan)
     model, engine = make_engine(args, snap, fault_plan=fault_plan)
     httpd = make_http_server(args, model, engine)
-    print(f"[serve] V={snap.num_words} K={snap.num_topics} on {snap.device} "
+    print(f"[serve] V={snap.num_words} K={snap.num_topics} phi={layout(snap)} "
           f"at http://{args.host}:{httpd.server_address[1]}")
     try:
         httpd.serve_forever()

@@ -48,15 +48,22 @@ between batches, reason-labelled error counters, p50/p99 latency +
 sliding-window rates; each executed batch draws one seed from the same
 ``seed``-anchored generator.
 
-This is the port of ``repro.serve.engine`` (dense snapshots).  On the card:
-the scheduler thread copies the packed batch once from pinned host memory
-and *launches* the fold-in on the current stream without synchronising
-(nothing there reads a device result); the assembler's ``.cpu()`` is the
-blocking device->host copy.  Both threads use the same (default) stream,
-so the copy is ordered after the batch's kernels.
+This is the port of ``repro.serve.engine``, for dense and V-sharded
+snapshots.  On the card: the scheduler thread copies the packed batch once
+from pinned host memory to the snapshot's (lead) device and *launches* the
+fold-in on the current streams without synchronising (nothing there reads
+a device result); the assembler's ``.cpu()`` is the blocking device->host
+copy.  Both threads use the same (default) streams, so the copy is ordered
+after the batch's kernels.  A sharded snapshot's batch first plans its
+route on the host (``route`` span, from the packed host buffer), and the
+bytes its comm strategy moves between shards are counted
+(``comm_bytes_moved``).  Under ``sanitize`` the launches run under
+``sync_guard``; the mode is process-wide, so the assembler's blocking copy
+takes turns with them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import heapq
 import queue
@@ -69,12 +76,15 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.runtime import (assert_lock_held,
-                                          enable_lock_sanitizer)
+                                          enable_lock_sanitizer, sync_guard)
+from repro_torch.distributed.partition import psum_gather_bytes
 from repro_torch.obs import LATENCY_BUCKETS_MS, SIZE_BUCKETS, Observability
 from repro_torch.serve.faults import FaultPlan, SimulatedOOM
-from repro_torch.serve.infer import (InferConfig, fold_in_cost,
-                                     fold_in_request, pack_request_buffer)
-from repro_torch.serve.snapshot import HotSwapModel
+from repro_torch.serve.infer import (InferConfig, _host_batch_from_buffer,
+                                     fold_in_cost, fold_in_request,
+                                     pack_request_buffer, resolve_comm,
+                                     routing_plan)
+from repro_torch.serve.snapshot import HotSwapModel, ShardedModelSnapshot
 
 _SENTINEL = object()
 
@@ -123,7 +133,8 @@ class EngineConfig:
     oom_backoff_ms: float = 5.0
     max_worker_restarts: int = 3  # crashes tolerated before declared dead
     fault_plan: FaultPlan | None = None   # chaos injection (tests/bench)
-    # Debug mode: lock-held assertions in the guarded sections.
+    # Debug mode: lock-held assertions in the guarded sections, and a host
+    # sync inside a batch's launches is an error.
     sanitize: bool = False
 
     def __post_init__(self):
@@ -232,6 +243,10 @@ class LDAServeEngine:
         self._inflight: queue.Queue = queue.Queue(maxsize=self.cfg.max_inflight)
         if self.cfg.sanitize:
             enable_lock_sanitizer()
+        # under sanitize: the scheduler's guarded launches and the
+        # assembler's blocking copy take turns (the guard is process-wide)
+        self._sync_turn = (threading.Lock() if self.cfg.sanitize
+                           else contextlib.nullcontext())
         reg = self.obs.registry
         self._m_requests = reg.counter(
             "repro_serve_requests_total", "documents served")
@@ -253,6 +268,9 @@ class LDAServeEngine:
         self._m_h2d = reg.counter(
             "repro_serve_h2d_transfers_total",
             "host->device transfers (one packed buffer per batch)")
+        self._m_comm = reg.counter(
+            "repro_serve_comm_bytes_moved_total",
+            "measured inter-shard bytes (sharded phi only)")
         self._m_oom = reg.counter(
             "repro_serve_oom_total", "device OOMs seen at dispatch")
         self._m_oom_fallbacks = reg.counter(
@@ -491,7 +509,7 @@ class LDAServeEngine:
             batches=self._m_batches.value,
             mean_batch=self._m_batch_size.mean,
             h2d_transfers=self._m_h2d.value,
-            comm_bytes_moved=0.0,         # dense phi only: nothing moves
+            comm_bytes_moved=self._m_comm.value,
             oom_events=self._m_oom.value,
             oom_fallbacks=self._m_oom_fallbacks.value,
             worker_restarts=self._m_restarts.value,
@@ -691,6 +709,19 @@ class LDAServeEngine:
         with tracer.span("pack", B=B, L=L, n=len(batch)):
             packed = pack_request_buffer([r.tokens for r in batch], B, L, seed)
 
+        # Sharded phi: plan the all2all routing from the packed host batch
+        # (no device->host read) and meter the strategy's inter-shard bytes.
+        capacity = None
+        if isinstance(snap, ShardedModelSnapshot):
+            with tracer.span("route"):
+                if resolve_comm(snap, cfg.infer) == "all2all":
+                    plan = routing_plan(snap, *_host_batch_from_buffer(packed))
+                    capacity, moved = plan.capacity, plan.a2a_bytes
+                else:
+                    moved = psum_gather_bytes(B, L, snap.num_topics,
+                                              snap.num_shards)
+            self._m_comm.inc(moved)
+
         with tracer.span("h2d", bytes=packed.nbytes):
             buf, host = self._to_device(packed, snap)   # ONE H2D per batch
         fp = cfg.fault_plan
@@ -701,7 +732,10 @@ class LDAServeEngine:
                     fp.fire("device_oom")          # raises SimulatedOOM
                 with tracer.span("sweep", B=B, L=L, impl=cfg.infer.impl):
                     # launches only; the seed comes from the host copy
-                    res = fold_in_request(snap, buf, cfg.infer, seed=seed)
+                    with self._sync_turn, sync_guard(cfg.sanitize,
+                                                     snap.device):
+                        res = fold_in_request(snap, buf, cfg.infer,
+                                              seed=seed, capacity=capacity)
                 break
             except Exception as e:  # noqa: BLE001 — OOM ladder, else re-raise
                 if not _is_oom(e):
@@ -738,7 +772,7 @@ class LDAServeEngine:
             with self._cond:
                 self._assembling = item
             try:
-                with tracer.span("assemble"):
+                with tracer.span("assemble"), self._sync_turn:
                     # the blocking D2H: waits for the batch's kernels on
                     # the stream the scheduler launched them on
                     theta = item.res.theta.cpu().numpy()

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core import likelihood
 from repro_torch.serve.infer import InferConfig, fold_in_config, pack_docs
-from repro_torch.serve.snapshot import ModelSnapshot
+from repro_torch.serve.snapshot import ModelSnapshot, ShardedModelSnapshot
 
 
 class PerplexityResult(NamedTuple):
@@ -49,14 +49,15 @@ def docs_from_corpus(corpus, doc_ids: Sequence[int] | None = None) -> list[np.nd
 
 
 def heldout_perplexity(
-    snap: ModelSnapshot,
+    snap: ModelSnapshot | ShardedModelSnapshot,
     docs: Sequence[np.ndarray],
     cfg: InferConfig | None = None,
     seed: int = 0,
     shuffle_split: bool = True,
 ) -> PerplexityResult:
     """Document-completion perplexity of ``docs`` under ``snap``, on the
-    snapshot's device."""
+    snapshot's (lead) device.  A sharded snapshot folds in sharded and is
+    scored against its assembled phi (the scoring pass needs dense rows)."""
     cfg = cfg or InferConfig()
     rng = np.random.default_rng(seed) if shuffle_split else None
     est, ev = split_documents(docs, rng)
@@ -66,11 +67,13 @@ def heldout_perplexity(
     gen = torch.Generator(device=snap.device)
     gen.manual_seed(seed)
     res = fold_in_config(snap, est_tok, est_mask, gen, cfg)
+    score = (snap.assemble() if isinstance(snap, ShardedModelSnapshot)
+             else snap)
     dev = snap.device
     lp, n = likelihood.heldout_token_log_prob(
-        res.theta, snap.phi_vk, snap.phi_sum,
+        res.theta, score.phi_vk, score.phi_sum,
         torch.as_tensor(ev_tok, device=dev), torch.as_tensor(ev_mask, device=dev),
-        snap.beta, snap.num_words_total)
+        score.beta, score.num_words_total)
     lp, n = float(lp), int(n)
     # No evaluation tokens -> NaN, not a perfect 1.0.
     ppl = float(np.exp(-lp / n)) if n else float("nan")

@@ -1,6 +1,6 @@
 """Fold-in Gibbs inference for unseen documents (the serving hot path).
 
-The port's counterpart of ``repro.serve.infer``, dense path.  Given a
+The port's counterpart of ``repro.serve.infer``.  Given a
 *frozen* topic-word model (phi_vk, phi_sum) from a snapshot, estimate the
 doc-topic mixture theta of documents the model never trained on: assign
 random topics, then run delayed-count Gibbs sweeps where only the document
@@ -20,6 +20,11 @@ the initial assignments and every sweep's uniforms are drawn up front
 or handed in, so the same arrays fed to the JAX package give the same
 draws.  On the card the sweeps run the CUDA kernel; on the CPU its plain
 PyTorch version (``InferConfig.impl``).
+
+A ``ShardedModelSnapshot`` (phi word-sharded over several devices, all
+driven from this one process) assembles the rows under one of two comm
+strategies (``InferConfig.comm``, section at the end), each bit-identical
+to the dense path on the same randoms.
 """
 from __future__ import annotations
 
@@ -30,7 +35,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import updates
+from repro_torch.distributed.partition import (doc_slice_bounds,
+                                               doc_slice_owner,
+                                               plan_token_routing,
+                                               route_buckets)
 from repro_torch.kernels.fold_in import ops as foldin_ops
+from repro_torch.serve.snapshot import ShardedModelSnapshot
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +53,14 @@ class InferConfig:
     top_k: int = 8
     ell_capacity: int | None = None  # P; None -> min(L, K)
     impl: str = "kernel"             # "kernel" | "ref" (plain version)
+    # How a V-sharded snapshot assembles the per-token phi rows:
+    #   "psum"    — every shard gathers its own words' rows at full
+    #               (B, L, K), zeros elsewhere; the lead device sums them;
+    #   "all2all" — request-side token routing: each shard sweeps a doc
+    #               slice and fetches only its real tokens' rows from their
+    #               owners (bytes scale with tokens, not B*L*K);
+    #   "auto"    — the snapshot's own ``comm`` tag.
+    comm: str = "auto"               # "auto" | "psum" | "all2all"
 
 
 class FoldInResult(NamedTuple):
@@ -220,12 +238,23 @@ def fold_in_buffer(
 
 
 def fold_in_request(snap, buf: torch.Tensor, cfg: InferConfig,
-                    seed: int | None = None) -> FoldInResult:
-    """One engine batch from a packed request buffer on ``snap``'s device.
-    ``seed=None`` reads it from the buffer (one device->host read); the
-    engine passes its host copy instead."""
+                    seed: int | None = None,
+                    capacity: int | None = None) -> FoldInResult:
+    """One engine batch from a packed request buffer on ``snap``'s (lead)
+    device, against a dense or a sharded snapshot.  ``seed=None`` reads it
+    from the buffer (one device->host read); the engine passes its host
+    copy instead, and under all2all the routing ``capacity`` it planned
+    from its host copy of the batch (else this plans it, one more read)."""
     if seed is None:
         seed = int(buf[-1, 0])
+    if isinstance(snap, ShardedModelSnapshot):
+        tokens, mask = _unpack_request_buffer(buf)
+        gen = torch.Generator(device=buf.device)
+        gen.manual_seed(int(seed))
+        if resolve_comm(snap, cfg) == "all2all" and capacity is None:
+            capacity = routing_plan(
+                snap, *_host_batch_from_buffer(buf.cpu().numpy())).capacity
+        return _fold_in_sharded(snap, tokens.long(), mask, gen, cfg, capacity)
     return fold_in_buffer(
         snap.phi_vk, snap.phi_sum, buf, snap.hyper, seed=seed,
         num_words_total=snap.num_words_total, burn_in=cfg.burn_in,
@@ -243,7 +272,10 @@ def fold_in_cost(batch: int, length: int, cfg: InferConfig) -> float:
 
 def fold_in_config(snapshot, tokens, mask, randoms,
                    cfg: InferConfig) -> FoldInResult:
-    """Convenience wrapper: run fold-in from a snapshot + InferConfig."""
+    """Convenience wrapper: run fold-in from a (dense or sharded) snapshot
+    + InferConfig."""
+    if isinstance(snapshot, ShardedModelSnapshot):
+        return fold_in_sharded(snapshot, tokens, mask, randoms, cfg)
     return fold_in(
         snapshot.phi_vk, snapshot.phi_sum, tokens, mask, randoms,
         snapshot.alpha, snapshot.beta,
@@ -268,3 +300,159 @@ def pack_docs(
         tokens[i, : len(d)] = d
         mask[i, : len(d)] = True
     return tokens, mask
+
+
+# ---------------------------------------------------------------------------
+# V-sharded fold-in: phi blocks on several devices, one process
+# ---------------------------------------------------------------------------
+# The reference runs these inside ``shard_map`` over a mesh; here one
+# process drives every device and its collectives are device-to-device
+# copies (``Tensor.to``: peer to peer over NVLink between cards, ordered
+# after both devices' current streams, no host sync).
+#
+# * "psum"    — each shard gathers the rows of the word ids its block owns
+#   (zeros elsewhere) at full (B, L, K); the partials are copied to the
+#   lead device and summed in int32 (exact); the sweeps run there once.
+#
+# * "all2all" — request-side token routing.  Shard s takes a contiguous
+#   slice of the batch's docs, buckets its real tokens' local-row ids by
+#   owning shard (``route_buckets``), sends each bucket to its owner, which
+#   gathers the rows, and scatters the rows that come back into its slice.
+#   The sweeps (K3) run on shard s's device on that slice only, with the
+#   randoms drawn at the full batch shape on the lead and sliced, so every
+#   doc draws as in the dense path; per-doc partials come back to the lead,
+#   overlapping slices deduplicated.  Launches on different cards are
+#   asynchronous, so the slices overlap in time across cards.
+
+
+def resolve_comm(snap, cfg: InferConfig) -> str:
+    """Effective comm strategy: the config's, or — on ``"auto"`` — the
+    snapshot's own ``comm`` tag."""
+    comm = cfg.comm
+    if comm in (None, "auto"):
+        comm = getattr(snap, "comm", "psum")
+    if comm not in ("psum", "all2all"):
+        raise ValueError(f"unknown comm strategy {comm!r} "
+                         "(expected 'psum', 'all2all' or 'auto')")
+    return comm
+
+
+def routing_plan(snap, tokens, mask):
+    """Host-side all2all routing plan for one batch against a sharded
+    snapshot: the bucket capacity plus this batch's bytes moved under both
+    comm strategies."""
+    return plan_token_routing(snap.host_word_shard_of, np.asarray(tokens),
+                              np.asarray(mask), snap.num_shards,
+                              snap.num_topics)
+
+
+def _host_batch_from_buffer(buf):
+    """Packed request buffer (host) -> (tokens, mask) for routing plans."""
+    b = np.asarray(buf)
+    L = b.shape[1] - 1
+    tokens, lengths = b[:-1, :L], b[:-1, L]
+    return tokens, np.arange(L)[None, :] < lengths[:, None]
+
+
+def _rows_psum(snap, tokens: torch.Tensor) -> torch.Tensor:
+    """(B, L) int64 word ids on the lead -> the (B, L, K) int32 rows there:
+    each shard's owned rows, zeros elsewhere, summed in int32 (F3: torch
+    widens an int32 sum to int64 unless told)."""
+    parts = []
+    for s, (blk, rep) in enumerate(zip(snap.phi_blocks, snap.replicas)):
+        tok = tokens.to(blk.device, non_blocking=True)
+        mine = rep.word_shard_of[tok] == s
+        rows = blk[torch.where(mine, rep.word_local_id[tok], 0)]
+        rows = torch.where(mine[..., None], rows, 0)     # foreign words: 0
+        parts.append(rows.to(snap.device, non_blocking=True))
+    return torch.stack(parts).sum(0, dtype=torch.int32)
+
+
+def _rows_routed(snap, rep, tokens: torch.Tensor, mask: torch.Tensor,
+                 capacity: int) -> torch.Tensor:
+    """One doc slice's (Bs, L) word ids and mask on its requester's device
+    (``rep`` its replica) -> its (Bs, L, K) int32 rows there: real tokens'
+    ids travel to their owners in (S, C) buckets, the gathered rows come
+    back and are gathered into slot order; padding slots get zero rows.
+    (A gather, not a scatter of the (S, C, K) rows: the empty bucket slots
+    would all scatter onto one spare row, and those conflicting writes
+    cost more than the rest of the slice.)"""
+    Bs, L = tokens.shape
+    S, T = snap.num_shards, Bs * L
+    K = snap.num_topics
+    dev = tokens.device
+    flat = tokens.reshape(T)
+    owner = torch.where(mask.reshape(T), rep.word_shard_of[flat], S)
+    send, src = route_buckets(owner, rep.word_local_id[flat], S, capacity)
+    back = []
+    for o, blk in enumerate(snap.phi_blocks):
+        ids = send[o].to(blk.device, non_blocking=True).long()
+        back.append(blk[ids].to(dev, non_blocking=True))   # (C, K)
+    back.append(torch.zeros((1, K), dtype=torch.int32, device=dev))
+    # each slot's bucket entry; empty bucket slots land on the spare
+    # position T, padding slots keep the zero row S*C
+    entry = torch.full((T + 1,), S * capacity, dtype=torch.int64, device=dev)
+    entry.index_put_((src.reshape(-1).long(),),
+                     torch.arange(S * capacity, device=dev))
+    return torch.cat(back)[entry[:T]].view(Bs, L, K)
+
+
+def _fold_in_sharded(snap, tokens: torch.Tensor, mask: torch.Tensor,
+                     randoms, cfg: InferConfig,
+                     capacity: int | None) -> FoldInResult:
+    """The sharded fold-in on (B, L) int64 ids and bool mask on the lead
+    device; launches only, no host sync (the engine's batch path)."""
+    B, L = mask.shape
+    K = snap.num_topics
+    n_sweeps = cfg.burn_in + cfg.samples
+    kw = dict(num_words_total=snap.num_words_total, burn_in=cfg.burn_in,
+              samples=cfg.samples)
+    lead = snap.hyper
+    if resolve_comm(snap, cfg) == "psum":
+        return _fold_in_rows(
+            _rows_psum(snap, tokens), snap.phi_sum, mask, randoms, lead[0],
+            lead[1], top_k=cfg.top_k, ell_capacity=cfg.ell_capacity,
+            impl=cfg.impl, **kw)
+    if capacity is None:
+        raise ValueError("comm='all2all' needs the routing plan's capacity")
+    S = snap.num_shards
+    z0, uniforms = _draw(randoms, B, L, K, n_sweeps, snap.device)
+    starts, Bs = doc_slice_bounds(B, S)
+    own, row = doc_slice_owner(B, S)
+    P = min(cfg.ell_capacity or L, L, K)
+    parts = []
+    for s, (dev, rep) in enumerate(zip(snap.devices, snap.replicas)):
+        sl = slice(int(starts[s]), int(starts[s]) + Bs)
+        tok_s = tokens[sl].to(dev, non_blocking=True)
+        msk_s = mask[sl].to(dev, non_blocking=True)
+        tsum, sp, ssq = foldin_ops.fold_in_sweeps_drawn(
+            _rows_routed(snap, rep, tok_s, msk_s, capacity), rep.phi_sum,
+            msk_s,
+            z0[sl].to(dev, non_blocking=True),
+            uniforms[:, sl].to(dev, non_blocking=True), rep.hyper[0],
+            rep.hyper[1], ell_capacity=P, impl=cfg.impl, **kw)
+        # the rows of the docs shard s officially covers: a contiguous run
+        # (overlapping slices keep each doc once)
+        rows = row[own == s]
+        keep = slice(int(rows[0]), int(rows[-1]) + 1) if rows.size else \
+            slice(0, 0)
+        parts.append([t[keep].to(snap.device, non_blocking=True)
+                      for t in (tsum, sp, ssq)])
+    tsum, sp, ssq = (torch.cat(p) for p in zip(*parts))
+    n_real = mask.sum().clamp(min=1).to(torch.float32)
+    return _assemble(tsum, sp.sum(), ssq.sum(), lead[0], cfg.samples,
+                     min(cfg.top_k, K), n_real * cfg.samples)
+
+
+def fold_in_sharded(snap, tokens, mask, randoms, cfg: InferConfig,
+                    capacity: int | None = None) -> FoldInResult:
+    """Fold-in against a ``ShardedModelSnapshot``: (B, L) word ids and mask
+    (host arrays or tensors), ``randoms`` a ``torch.Generator`` on the lead
+    device or a drawn ``(z0, uniforms)`` pair, as ``fold_in`` takes them.
+    Validates the word ids (one device->host read) and, under all2all,
+    plans the routing capacity from the batch unless given."""
+    tok, m = _checked_tokens(tokens, mask, snap.num_words, snap.device)
+    if resolve_comm(snap, cfg) == "all2all" and capacity is None:
+        capacity = routing_plan(snap, tok.cpu().numpy(),
+                                m.cpu().numpy()).capacity
+    return _fold_in_sharded(snap, tok, m, randoms, cfg, capacity)

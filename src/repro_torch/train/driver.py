@@ -26,12 +26,12 @@
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Callable
 
 import torch
 
+from repro_torch.analysis.runtime import sync_guard
 from repro_torch.core import trainer
 from repro_torch.core.corpus import Corpus, TiledCorpusShard, tile_corpus
 from repro_torch.core.trainer import LDAConfig, LDAState, TrainResult
@@ -42,20 +42,6 @@ from repro_torch.kernels.phi_update import ops as phi_ops
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-@contextlib.contextmanager
-def sync_guard(enabled: bool, device: torch.device):
-    """Make any host-device synchronisation inside the block an error."""
-    if not (enabled and device.type == "cuda"):
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
 
 
 def fit(

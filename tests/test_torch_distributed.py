@@ -189,6 +189,26 @@ def _byte_wire(rank, out):
         assert torch.equal(wrapped[light], exact[light])
 
 
+def _no_gather(state):
+    raise AssertionError("the LPT publish gathered the whole phi")
+
+
+def _publish_sharded(dl, st, out_dir, out):
+    """Sharded snapshots of the 2d state: 2 shards (the word shards' own
+    blocks, sent to rank 0 one at a time, never gathered) and 3 (the
+    canonical phi gathered and split contiguously)."""
+    for n in (2, 3):
+        mgr = tckpt.CheckpointManager(os.path.join(out_dir, f"sharded{n}"))
+        if n == 2:
+            dl.gather_phi = _no_gather
+        path = mgr.publish_snapshot(st, partition=dl, shards=n)
+        if n == 2:
+            del dl.gather_phi
+        out[f"publish{n}/path"] = np.asarray(path)
+        out[f"publish{n}/same_path"] = np.asarray(
+            path == mgr.snapshot_path(ITERS, sharded=True))
+
+
 def _ranks_main(rank, ref_path, ckpt_dir, out_dir):
     torch.set_num_threads(1)
     tpart.INT16_FLUX_BOUND = HEAVY_BOUND
@@ -216,6 +236,7 @@ def _ranks_main(rank, ref_path, ckpt_dir, out_dir):
             mgr = tckpt.CheckpointManager(os.path.join(out_dir, "snaps"))
             out["publish/path"] = np.asarray(mgr.publish_snapshot(
                 st, partition=dl))
+            _publish_sharded(dl, st, out_dir, out)
     # elastic: the reference's 1d checkpoint onto this 2d mesh
     it, z, meta = tckpt.CheckpointManager(ckpt_dir).latest()
     dl = _dl(port_cfg(), meshes["2d"], corpus, "2d")
@@ -322,6 +343,29 @@ def test_publish_snapshot_through_2d_partition(runs):
     assert snap.num_words_total == corpus.num_words
     assert snap.meta["mode"] == "2d" and snap.meta["iteration"] == ITERS
     assert os.listdir(os.path.dirname(path)) == [os.path.basename(path)]
+
+
+@pytest.mark.parametrize("n,layout", [(2, "lpt"), (3, "contiguous")])
+def test_2d_partition_publishes_sharded_snapshot(runs, n, layout):
+    """A 2d-trained state publishes V-sharded: at the word-shard count the
+    trainer's own LPT blocks (no rank gathered phi), otherwise a
+    contiguous re-split; both assemble to the reference's canonical phi."""
+    from repro_torch.serve import load_sharded_snapshot
+
+    ref, ranks = runs
+    path = str(ranks[0][f"publish{n}/path"])
+    assert path.endswith(".sharded") and bool(ranks[0][f"publish{n}/same_path"])
+    snap = load_sharded_snapshot(path, devices=("cpu",) * n)
+    assert snap.num_shards == n
+    assert snap.meta == {"mode": "2d", "layout": layout, "iteration": ITERS}
+    np.testing.assert_array_equal(snap.assemble().phi_vk.numpy(),
+                                  ref["2d/phi"])
+    np.testing.assert_array_equal(snap.phi_sum.numpy(), ref["2d/phi_sum"])
+    if layout == "lpt":
+        plan = tpart.partition_vocabulary(port_corpus(), 2)
+        np.testing.assert_array_equal(snap.word_shard_of, plan[0])
+        np.testing.assert_array_equal(snap.word_local_id, plan[1])
+        assert snap.phi_blocks[0].shape == (plan[2], 8)
 
 
 def test_multirank_chain_matches_single_device_chain(runs):

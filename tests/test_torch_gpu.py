@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the fold-in and training kernels
 against their plain PyTorch versions on the card, the wrappers' input checks,
-the engine and the trainer running through the kernels, and training over a
-one-rank NCCL group (spawned, never in the test's process).  Skipped without
+the engine and the trainer running through the kernels, V-sharded serving
+through K3 (shards on one card, and across cards where there are two), and
+training over a one-rank NCCL group (spawned, never in the test's process).  Skipped without
 a card.  This file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
@@ -101,7 +102,8 @@ def test_fold_in_draw_does_not_depend_on_bucket_or_slot(dev):
     """The same documents (tokens, z0, uniforms) at L = 64 in a batch of
     three and at L = 256 in a batch of 33, at other slots, get the same
     bits: a token's draw depends on its row, the doc's theta and its own
-    uniforms, not on which CTA of the doc's cluster or which warp takes it.
+    uniforms, not on which CTA of the doc's cluster or which warp takes it,
+    and the doc's S/(S+Q) sum is taken in token order.
     The rows' p* spans ~1e8 inside every search block (counts of a million
     beside topics that are heavy elsewhere), where the lanes' sums round
     in different directions and the prefixes must still not decrease."""
@@ -135,8 +137,7 @@ def test_fold_in_draw_does_not_depend_on_bucket_or_slot(dev):
     (t1, sp1, q1, z1), (t2, sp2, q2, z2) = outs
     assert torch.equal(t1, t2) and torch.equal(sp1, sp2)
     assert torch.equal(z1, z2[:, :64])
-    torch.testing.assert_close(q1, q2, rtol=1e-5, atol=0)   # summed in
-    # another grouping of the tokens
+    assert torch.equal(q1, q2)   # summed in token order, whatever the shape
     assert 0 < int(sp1.sum()) < int(lens.sum()) * 2   # both sides drawn
 
 
@@ -188,6 +189,95 @@ def test_engine_serves_through_kernel(dev):
         eng.stop()
     assert [int(r["theta"].argmax()) for r in out] == [0, 1, 2]
     assert kernel.fold_in_docs.launches > before
+
+
+# ---------------------------------------------------------------------------
+# V-sharded serving: K3 on the lead device (psum) and on each shard's doc
+# slice (all2all)
+# ---------------------------------------------------------------------------
+def sharded_case(dev, K=1024, V=500, seed=4):
+    from repro_torch.serve import snapshot_from_numpy
+
+    rng = np.random.default_rng(seed)
+    phi = ((rng.random((V, K)) < 0.05)
+           * rng.integers(1, 5000, (V, K))).astype(np.int32)
+    return snapshot_from_numpy(phi, phi.sum(0), 50.0 / K, 0.01, V,
+                               device=dev), rng
+
+
+def assert_sharded_equals_dense(snap, devices, rng):
+    """psum and all2all through K3 equal the dense fold-in bit for bit in
+    theta, top_topics, sparse_frac and mean_s_over_sq; K3 launched once
+    (psum) and once a shard (all2all)."""
+    from repro_torch.serve import InferConfig, shard_snapshot
+    from repro_torch.serve.infer import fold_in_config, pack_docs
+
+    cfg = InferConfig(burn_in=3, samples=2)
+    for B in (1, 6, 32):
+        for L in (60, 256):
+            lens = rng.integers(1, L + 1, B)
+            lens[B // 2] = L
+            tokens, mask = pack_docs(
+                [rng.integers(0, snap.num_words, n) for n in lens], L)
+            gen = torch.Generator(device=snap.device).manual_seed(B + L)
+            randoms = ops.draw_fold_in_randoms(gen, B, L, snap.num_topics,
+                                               5, snap.device)
+            want = fold_in_config(snap, tokens, mask, randoms, cfg)
+            for comm in ("psum", "all2all"):
+                sh = shard_snapshot(snap, len(devices), devices=devices,
+                                    comm=comm)
+                before = kernel.fold_in_docs.launches
+                got = fold_in_config(sh, tokens, mask, randoms, cfg)
+                torch.cuda.synchronize()
+                assert kernel.fold_in_docs.launches - before == (
+                    1 if comm == "psum" else len(devices))
+                for f in ("theta", "top_topics", "sparse_frac",
+                          "mean_s_over_sq"):
+                    assert torch.equal(getattr(got, f).cpu(),
+                                       getattr(want, f).cpu()), (B, L, comm,
+                                                                 f)
+
+
+def test_sharded_fold_in_equals_dense_on_one_card(dev):
+    snap, rng = sharded_case(dev)
+    assert_sharded_equals_dense(snap, (dev,) * 4, rng)
+
+
+def test_sharded_fold_in_equals_dense_across_cards(dev):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    snap, rng = sharded_case(dev, seed=5)
+    assert_sharded_equals_dense(
+        snap, tuple(torch.device("cuda", i % n) for i in range(4)), rng)
+
+
+@pytest.mark.parametrize("comm", ["psum", "all2all"])
+def test_sharded_engine_makes_no_host_sync(dev, comm):
+    """The engine on a sharded snapshot under sanitize: every batch's
+    launches run under the sync guard (a host sync there fails the batch),
+    one H2D copy a batch, K3 launched."""
+    from repro_torch.serve import (EngineConfig, HotSwapModel, InferConfig,
+                                   LDAServeEngine, shard_snapshot)
+
+    snap, rng = sharded_case(dev, K=256, seed=6)
+    n = torch.cuda.device_count()
+    sh = shard_snapshot(snap, 4, comm=comm, devices=tuple(
+        torch.device("cuda", i % n) for i in range(4)))
+    eng = LDAServeEngine(HotSwapModel(sh), EngineConfig(
+        max_batch=8, max_delay_ms=5.0, length_buckets=(32, 64),
+        infer=InferConfig(burn_in=3, samples=2), sanitize=True))
+    before = kernel.fold_in_docs.launches
+    try:
+        out = eng.infer_many([rng.integers(0, snap.num_words, n)
+                              for n in rng.integers(1, 64, 20)])
+        s = eng.stats()
+    finally:
+        eng.stop()
+    assert len(out) == 20 and s["errors"] == 0
+    assert s["h2d_transfers"] == s["batches"] and s["comm_bytes_moved"] > 0
+    assert kernel.fold_in_docs.launches > before
+    assert torch.cuda.get_sync_debug_mode() == 0
 
 
 # ---------------------------------------------------------------------------

@@ -460,7 +460,7 @@ def test_state_from_numpy_gives_jax_log_likelihood():
 
 
 def test_checkpoint_manager_gc_and_snapshots(tmp_path):
-    from repro_torch.serve import load_snapshot
+    from repro_torch.serve import assemble_sharded_snapshot, load_snapshot
 
     mgr = tckpt.CheckpointManager(str(tmp_path), keep=2, async_write=False)
     for it in (1, 2, 3):
@@ -475,8 +475,11 @@ def test_checkpoint_manager_gc_and_snapshots(tmp_path):
     assert mgr.latest_snapshot_path() == path
     snap = load_snapshot(path, device="cpu")
     assert torch.equal(snap.phi_vk, res.state.phi_vk)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        mgr.publish_snapshot(res.state, 0.1, 0.01, shards=2)
+    sharded = mgr.publish_snapshot(res.state, 0.1, 0.01, shards=2)
+    assert sharded.endswith("snapshot_00000002.sharded")
+    assert mgr.latest_snapshot_path() == sharded and os.path.exists(path)
+    back = assemble_sharded_snapshot(sharded, device="cpu")
+    assert torch.equal(back.phi_vk, res.state.phi_vk)
 
 
 # ---------------------------------------------------------------------------
