@@ -91,6 +91,25 @@ store, a ("data",) ``DeviceMesh``; the group is destroyed at the end):
     line), median tokens/s beside phase 11's; the 2d path on a (1, 1) mesh
     on ``nytimes_like(0.1)``, compressed, 3 iterations.
 
+PubMed (``configs/lda_pubmed.CONFIG`` on ``lda_pubmed.scaled(PUBMED_SCALE)``
+at full width, V = 141,043, K = 1024; the depth is cut to what one card
+holds, see PERF.md):
+
+17. host preparation (corpus, tiling, tables; seconds each, P and the ELL
+    type); K1 against its plain version on the heaviest and tail tiles,
+    K2 and K4 against theirs at full V x K; ``fit(corpus, CONFIG, 5)``
+    with eval every iteration, then K4 on its final z, the K1, K2 and K4
+    counters read around both; K1 against plain again on the trained state
+    and each step of an iteration timed alone (with the ``theta_to_ell``
+    share); the phase's peak device memory (``peak_bytes``, reset at its
+    start);
+
+The examples on the card:
+
+18. ``examples/torch_quickstart.py`` and ``examples/torch_serve_lda.py``
+    through their ``main`` at their default sizes on cuda:0, the four
+    kernels' counters read around them.
+
 Bounds (fault F2: the kernels' prefix sums are float32 adds in another
 order than torch.cumsum's, so a draw on a float boundary may flip):
 
@@ -116,6 +135,11 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
   warm-up iteration, the last LL/token above the first, phi == K4(z)
   exactly, phi_sum == phi.sum(0), phi.sum() == number of tokens, every z
   in [0, K);
+* PubMed: as training (K1's flips <= 1e-3, K2 and K4 exact, K1 and K2
+  launched once per iteration plus the warm-up, LL/token rising, phi ==
+  K4(z), the sums), V = 141,043 and K = 1024;
+* examples: both finish; the quickstart's LL/token rises through K1 and
+  K2, the serving example launches K3 and swaps to version 3;
 * over the group: the mesh step equal to ``lda_iteration`` (z, phi,
   phi_sum), the byte wire returning the delta exactly, both wires training
   the same state, phi == K4(z) after each full-width run, and in every
@@ -155,6 +179,8 @@ TRAIN_ITERS = 10
 MESH_ITERS = 5                 # fit(mesh=...) at full width, each wire
 MESH_2D_SCALE = 0.1            # the 2d (1 x 1) run's corpus
 MESH_2D_ITERS = 3
+PUBMED_SCALE = 0.75            # lda_pubmed.scaled: the depth one card holds
+PUBMED_ITERS = 5
 
 BATCH, BUCKETS, SWEEPS = 32, (32, 64, 128, 256), (8, 4)
 SERVE_DOCS, SWAP_DOCS = 256, 32
@@ -685,6 +711,262 @@ def mesh_phases(card, corpus, shard, seg, rows, st, single_tps,
     return launched
 
 
+def counts_vs_plain(phase, shard, seg, rows, state0, z1, V, K,
+                    reuse: bool) -> tuple[int, int]:
+    """K2 (z1 - state0.z) and K4 (z1) against their plain versions at full
+    V x K, and state0.phi + K2 == K4(z1); with ``reuse``, K4 also into
+    memory the allocator has just freed from a tensor of -1 (a row K4
+    neither writes whole nor zeroes shows there).  Emits ``phase``, raises
+    past exactness, returns (K2's, K4's max abs error)."""
+    import torch
+
+    from repro_torch.kernels.phi_update import kernel as k24
+    from repro_torch.kernels.phi_update import ref as k24_ref
+
+    tw, tf, tm = shard.tile_word, shard.tile_first, shard.token_mask
+    dev = tm.device
+    dk = k24.phi_delta_tiles(seg, z1, state0.z, tm, V, K)
+    dr = k24_ref.phi_delta_tiles_ref(tw, tf, z1, state0.z, tm, V, K)
+    ur = k24_ref.phi_update_tiles_ref(tw, tf, z1, tm, V, K)
+    uk = k24.phi_update_tiles(seg, rows, z1, tm, V, K)
+    torch.cuda.synchronize()
+    k4_err = int((uk - ur).abs().max())
+    update_equal = torch.equal(uk, ur)
+    reused = extra = None
+    if reuse:
+        # K4 writes rows it does not zero: into memory the allocator has
+        # just freed from a tensor of -1, a row it failed to own shows as -1s
+        del uk
+        torch.cuda.empty_cache()
+        junk = torch.full((V, K), -1, dtype=torch.int32, device=dev)
+        junk_ptr = junk.data_ptr()
+        del junk
+        uk = k24.phi_update_tiles(seg, rows, z1, tm, V, K)
+        reused = uk.data_ptr() == junk_ptr
+        torch.cuda.synchronize()
+        k4_err = max(k4_err, int((uk - ur).abs().max()))
+        extra = dict(update_equal_in_reused_memory=torch.equal(uk, ur),
+                     reused_memory=reused)
+    k2_err = int((dk - dr).abs().max())
+    delta_equal, advance = torch.equal(dk, dr), torch.equal(
+        state0.phi_vk + dk, uk)
+    emit(phase, V=V, K=K, delta_equal=delta_equal, update_equal=update_equal,
+         **(extra or {}), advance_exact=advance,
+         moved_tokens=int(((z1 != state0.z) & tm).sum()),
+         k2_max_abs_err=k2_err, k4_max_abs_err=k4_err)
+    if not (delta_equal and update_equal and torch.equal(uk, ur)
+            and advance):
+        raise AssertionError("K2 / K4 differ from their plain versions")
+    if reuse and not reused:
+        raise AssertionError("K4's -1 check did not get the freed memory")
+    return k2_err, k4_err
+
+
+def trained_state_phases(card, cfg, shard, st, seg, kw, label: str,
+                         phase: str):
+    """On a trained state ``st``: K1 against its plain version
+    (``k1_vs_plain``, state ``label``), then each step of ``lda_iteration``
+    timed alone (``time_ms``, 5 calls) with K1's bound and design bytes on
+    that state; emits ``phase``.  Returns (K1's largest S/(S+Q) error where
+    the draws agree, the step times)."""
+    import torch
+
+    from repro_torch.core import trainer, updates
+    from repro_torch.core.sampler import draw_sweep_uniforms, pick_search_block
+    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.lda_sample import ops as k1_ops
+    from repro_torch.kernels.phi_update import kernel as k24
+
+    tw, tm = shard.tile_word, shard.token_mask
+    n, t = tm.shape
+    V, K = shard.num_words, cfg.num_topics
+    nb, bw = K // pick_search_block(K), pick_search_block(K)
+    # the two steps that build a (D, K) theta of their own are timed
+    # before this one's theta exists (at PubMed's depth two do not fit)
+    torch.cuda.empty_cache()
+    ms = dict(
+        theta_from_z=time_ms(lambda: updates.theta_from_z(
+            st.z, shard.token_doc, tm, shard.num_docs_local, K), n=5, warm=1),
+        log_likelihood=time_ms(lambda: trainer.log_likelihood(cfg, shard, st),
+                               n=5, warm=1))
+    theta, c, tp, _ = trainer.theta_and_ell(cfg, shard, st.z)
+    P = c.shape[1]
+    live = k1_ops.live_lengths(c)
+    gen = trainer.iteration_generator(cfg, st.iteration, tm.device)
+    u = draw_sweep_uniforms(gen, n, t)
+    fin = (tw, shard.token_doc, tm, st.z, st.phi_vk, st.phi_sum, c, tp, u)
+    err = k1_vs_plain(fin, kw, label)
+
+    z2, sp2, _ = k1.lda_sample_tiles(*fin, ell_live=live, **kw)
+    d2 = k24.phi_delta_tiles(seg, z2, st.z, tm, V, K)
+    steps = dict(
+        theta_to_ell=lambda: updates.theta_to_ell(theta, P, c.dtype),
+        draw_uniforms=lambda: draw_sweep_uniforms(gen, n, t),
+        live_lengths=lambda: k1_ops.live_lengths(c),
+        k1_sweep=lambda: k1.lda_sample_tiles(*fin, ell_live=live, **kw),
+        k2_phi_delta=lambda: k24.phi_delta_tiles(seg, z2, st.z, tm, V, K),
+        phi_advance=lambda: updates.phi_totals(st.phi_vk + d2))
+    ms.update({k: time_ms(f, n=5, warm=1) for k, f in steps.items()})
+    it_ms = sum(v for k, v in ms.items() if k != "log_likelihood")
+    emit(phase, card=card, iteration=st.iteration, ms=ms, iteration_ms=it_ms,
+         shares={k: v / it_ms for k, v in ms.items()
+                 if k != "log_likelihood"},
+         k1_final_bound=bound(*k1_bytes_and_ops(fin, sp2, nb, bw),
+                              FP32_FLOPS),
+         k1_design=k1_design(fin, ms["k1_sweep"], k1.tiles_per_cta()),
+         sparse_share=float(sp2[tm].float().mean()))
+    del z2, sp2, d2, fin, u, theta, c, tp, live
+    torch.cuda.empty_cache()
+    return err, ms
+
+
+def pubmed_phase(card: str, scale: float, iters: int, counters,
+                 device="cuda:0") -> tuple[dict, int, int, float]:
+    """Phase 17: ``configs/lda_pubmed.CONFIG`` on ``lda_pubmed.scaled(scale)``
+    at full width (V = 141,043, K = 1024): host preparation, K1, K2 and K4
+    against their plain versions on this tiling, ``fit`` for ``iters``
+    iterations (the launches read around it), phi == K4(z), the step
+    breakdown on the final state, and the peak device memory of the phase.
+    Returns (the launches of its main path, K2's and K4's max abs error,
+    K1's S/(S+Q) error)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import lda_pubmed
+    from repro_torch.core import trainer, updates
+    from repro_torch.core.corpus import tile_corpus
+    from repro_torch.core.sampler import draw_sweep_uniforms
+    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.lda_sample import ops as k1_ops
+    from repro_torch.kernels.phi_update import ops as phi_ops
+    from repro_torch.train import fit
+
+    dev = torch.device(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    corpus = lda_pubmed.scaled(scale, seed=0)
+    t_corpus = time.perf_counter() - t0
+    cfg = trainer.resolve_config(lda_pubmed.CONFIG, corpus)
+    t0 = time.perf_counter()
+    shard = tile_corpus(corpus, 1, cfg.tile_tokens)[0]
+    t_tile = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shard = shard.to(dev)
+    seg = phi_ops.shard_segments(shard)
+    rows = phi_ops.shard_rows_to_zero(shard)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    n, t = shard.token_doc.shape
+    V, K, P = corpus.num_words, cfg.num_topics, cfg.ell_capacity
+    ell = updates.ell_dtype(K, shard.max_doc_length)
+    emit("pubmed_prep", card=card, scale=scale, docs=corpus.num_docs, V=V,
+         K=K, P=P, tokens=corpus.num_tokens, tiles=n, tile_tokens=t,
+         max_doc_length=shard.max_doc_length, ell_dtype=str(ell),
+         corpus_s=t_corpus, tiling_s=t_tile, to_device_s=t_dev,
+         k2_segments=int(seg.shape[0]), k4_rows_to_zero=int(rows.shape[0]))
+    if V != lda_pubmed.FULL["num_words"] or K != lda_pubmed.NUM_TOPICS:
+        raise AssertionError(f"PubMed is not at full width: V={V}, K={K}")
+
+    # K1, K2 and K4 against their plain versions on this tiling
+    state0 = trainer.init_state(cfg, shard)
+    _, ell_c, ell_t, _ = trainer.theta_and_ell(cfg, shard, state0.z)
+    live0 = k1_ops.live_lengths(ell_c)
+    uni = draw_sweep_uniforms(trainer.iteration_generator(cfg, 0, dev), n, t)
+    full = (shard.tile_word, shard.token_doc, shard.token_mask, state0.z,
+            state0.phi_vk, state0.phi_sum, ell_c, ell_t, uni)
+    kw = dict(alpha=cfg.resolved_alpha(), beta=cfg.beta, num_words_total=V)
+    k1_err = k1_vs_plain(full, kw, "pubmed-initial")
+    z1 = k1.lda_sample_tiles(*full, ell_live=live0, **kw)[0]
+    k2_err, k4_err = counts_vs_plain("pubmed_counts_vs_plain", shard, seg,
+                                     rows, state0, z1, V, K, reuse=False)
+    del state0, ell_c, ell_t, live0, uni, full, z1
+    torch.cuda.empty_cache()
+
+    # the main path: fit, then K4 rebuilds phi from the final z
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    res = fit(corpus, lda_pubmed.CONFIG, iters, device=dev, shard=shard,
+              eval_every=1)
+    st = res.state
+    rebuilt = phi_ops.phi_update(shard.tile_word, shard.tile_first, st.z,
+                                 shard.token_mask, num_words=V, num_topics=K,
+                                 segments=seg, zero_rows=rows)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in counters}
+    peak = torch.cuda.max_memory_allocated(dev)
+    tps = res.tokens_per_sec
+    emit("pubmed_train", card=card, scale=scale, iters=iters,
+         compile_sec=res.compile_sec, tokens_per_sec=tps,
+         median_tokens_per_sec=float(np.median(tps)),
+         ll_per_token=res.ll_per_token,
+         sparse_frac=[x[0] for x in res.stats],
+         mean_s_over_sq=[x[2] for x in res.stats], launches=launches,
+         wall_s=wall, peak_bytes=peak,
+         total_memory=torch.cuda.get_device_properties(dev).total_memory)
+    if launches["lda_sample_tiles"] != iters + 1 or \
+            launches["phi_delta_tiles"] != iters + 1 or \
+            launches["phi_update_tiles"] < 1:
+        raise AssertionError(f"PubMed: K1/K2 not launched once per iteration"
+                             f" (+1 warm-up) or K4 never: {launches}")
+    if not res.ll_per_token[-1] > res.ll_per_token[0]:
+        raise AssertionError(f"PubMed LL/token did not rise: "
+                             f"{res.ll_per_token}")
+    if not (torch.equal(st.phi_vk, rebuilt)
+            and torch.equal(st.phi_sum, updates.phi_totals(st.phi_vk))
+            and int(st.phi_vk.sum(dtype=torch.int64)) == corpus.num_tokens
+            and bool(((st.z >= 0) & (st.z < K)).all())):
+        raise AssertionError("PubMed: phi != K4(z), or its sums or z are "
+                             "off")
+    del rebuilt
+    err, _ = trained_state_phases(card, cfg, shard, st, seg, kw,
+                                  "pubmed-trained", "pubmed_breakdown")
+    return launches, k2_err, k4_err, max(k1_err, err)
+
+
+def examples_phase(card: str, counters) -> dict:
+    """Phase 18: ``examples/torch_quickstart.py`` and
+    ``examples/torch_serve_lda.py`` through their ``main`` on cuda:0 at
+    their default sizes; returns the launches of the four kernels in
+    them."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_quickstart
+    import torch_serve_lda
+
+    for f in counters:
+        f.launches = 0
+    t0 = time.perf_counter()
+    quick = torch_quickstart.main([])
+    t_quick = time.perf_counter() - t0
+    quick_launches = {f.__name__: f.launches for f in counters}
+    t0 = time.perf_counter()
+    served = torch_serve_lda.main([])
+    t_serve = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in counters}
+    emit("examples", card=card, quickstart_s=t_quick,
+         quickstart_ll=quick.ll_per_token,
+         quickstart_launches=quick_launches, serve_s=t_serve,
+         serve_version=served["version"],
+         serve_swapped_version=int(served["swapped"]["model_version"]),
+         serve_perplexity=float(served["perplexity"].perplexity),
+         launches=launches)
+    if quick_launches["lda_sample_tiles"] < 1 or \
+            quick_launches["phi_delta_tiles"] < 1:
+        raise AssertionError(f"the quickstart missed K1/K2: {quick_launches}")
+    if launches["fold_in_docs"] < 1:
+        raise AssertionError("the serving example never launched K3")
+    if not quick.ll_per_token[-1] > quick.ll_per_token[0]:
+        raise AssertionError("the quickstart's LL/token did not rise")
+    if served["version"] != 3 or not np.isfinite(
+            served["perplexity"].perplexity):
+        raise AssertionError("the serving example did not swap to v3")
+    return launches
+
+
 def train_phases(card: str, scale: float, iters: int,
                  device="cuda:0") -> list[dict]:
     """Phases 7-14; returns the kernels-line rows of K1, K2 and K4."""
@@ -752,38 +1034,8 @@ def train_phases(card: str, scale: float, iters: int,
     # -- 9. K2 and K4 against their plain versions at full V x K -------------
     z1, sp1, _ = k1.lda_sample_tiles(*full, ell_live=live0, **kw)
     tw, tf, tm = shard.tile_word, shard.tile_first, shard.token_mask
-    dk = k24.phi_delta_tiles(seg, z1, state0.z, tm, V, K)
-    dr = k24_ref.phi_delta_tiles_ref(tw, tf, z1, state0.z, tm, V, K)
-    ur = k24_ref.phi_update_tiles_ref(tw, tf, z1, tm, V, K)
-    uk = k24.phi_update_tiles(seg, rows, z1, tm, V, K)
-    torch.cuda.synchronize()
-    k4_err = int((uk - ur).abs().max())
-    update_equal = torch.equal(uk, ur)
-    # K4 writes rows it does not zero: into memory the allocator has just
-    # freed from a tensor of -1, a row it failed to own shows as -1s
-    del uk
-    torch.cuda.empty_cache()
-    junk = torch.full((V, K), -1, dtype=torch.int32, device=dev)
-    junk_ptr = junk.data_ptr()
-    del junk
-    uk = k24.phi_update_tiles(seg, rows, z1, tm, V, K)
-    reused = uk.data_ptr() == junk_ptr
-    torch.cuda.synchronize()
-    k2_err = int((dk - dr).abs().max())
-    k4_err = max(k4_err, int((uk - ur).abs().max()))
-    emit("train_counts_vs_plain", V=V, K=K, delta_equal=torch.equal(dk, dr),
-         update_equal=update_equal,
-         update_equal_in_reused_memory=torch.equal(uk, ur),
-         reused_memory=reused,
-         advance_exact=torch.equal(state0.phi_vk + dk, uk),
-         moved_tokens=int(((z1 != state0.z) & tm).sum()),
-         k2_max_abs_err=k2_err, k4_max_abs_err=k4_err)
-    if not (torch.equal(dk, dr) and update_equal and torch.equal(uk, ur)
-            and torch.equal(state0.phi_vk + dk, uk)):
-        raise AssertionError("K2 / K4 differ from their plain versions")
-    if not reused:
-        raise AssertionError("K4's -1 check did not get the freed memory")
-    del dk, dr, uk, ur
+    k2_err, k4_err = counts_vs_plain("train_counts_vs_plain", shard, seg,
+                                     rows, state0, z1, V, K, reuse=True)
 
     # -- 10. times at full width ---------------------------------------------
     words = tw.long()[:, None].expand(n, t)[tm]
@@ -865,35 +1117,10 @@ def train_phases(card: str, scale: float, iters: int,
     if not bool(((st.z >= 0) & (st.z < K)).all()):
         raise AssertionError("a topic assignment is outside [0, K)")
 
-    # -- 12. K1 against its plain version on the trained state ---------------
-    theta, c, tp, _ = trainer.theta_and_ell(cfg, shard, st.z)
-    live = k1_ops.live_lengths(c)
-    gen = trainer.iteration_generator(cfg, st.iteration, dev)
-    u = draw_sweep_uniforms(gen, n, t)
-    fin = (tw, shard.token_doc, tm, st.z, st.phi_vk, st.phi_sum, c, tp, u)
-    k1_err = max(k1_err, k1_vs_plain(fin, kw, "trained"))
-
-    # -- 13. where an iteration's time goes (final state) ---------------------
-    z2, sp2, _ = k1.lda_sample_tiles(*fin, ell_live=live, **kw)
-    d2 = k24.phi_delta_tiles(seg, z2, st.z, tm, V, K)
-    steps = dict(
-        theta_from_z=lambda: updates.theta_from_z(
-            st.z, shard.token_doc, tm, shard.num_docs_local, K),
-        theta_to_ell=lambda: updates.theta_to_ell(theta, P, c.dtype),
-        draw_uniforms=lambda: draw_sweep_uniforms(gen, n, t),
-        live_lengths=lambda: k1_ops.live_lengths(c),
-        k1_sweep=lambda: k1.lda_sample_tiles(*fin, ell_live=live, **kw),
-        k2_phi_delta=lambda: k24.phi_delta_tiles(seg, z2, st.z, tm, V, K),
-        phi_advance=lambda: updates.phi_totals(st.phi_vk + d2),
-        log_likelihood=lambda: trainer.log_likelihood(cfg, shard, st))
-    ms = {k: time_ms(f, n=5, warm=1) for k, f in steps.items()}
-    k1_final = bound(*k1_bytes_and_ops(fin, sp2, nb, bw), FP32_FLOPS)
-    emit("train_breakdown", card=card, iteration=st.iteration, ms=ms,
-         iteration_ms=sum(v for k, v in ms.items() if k != "log_likelihood"),
-         k1_final_bound=k1_final,
-         k1_design=k1_design(fin, ms["k1_sweep"], group),
-         sparse_share=float(sp2[tm].float().mean()))
-    del z2, sp2, d2, fin, u, theta, c, tp, live
+    # -- 12-13. K1 against plain on the trained state; the step breakdown ----
+    err, _ = trained_state_phases(card, cfg, shard, st, seg, kw, "trained",
+                                  "train_breakdown")
+    k1_err = max(k1_err, err)
 
     # -- 14. a profiler trace of two steady iterations -----------------------
     emit("train_profile", card=card, **profile_iterations(cfg, shard, st, 2))
@@ -1310,6 +1537,26 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     train_rows = train_phases(card, TRAIN_SCALE, TRAIN_ITERS)
+    torch.cuda.empty_cache()
+
+    # -- 17. PubMed at full width ------------------------------------------
+    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.phi_update import kernel as k24
+    train_counters = (k1.lda_sample_tiles, k24.phi_delta_tiles,
+                      k24.phi_update_tiles)
+    pm_launches, k2_err, k4_err, k1_err = pubmed_phase(
+        card, PUBMED_SCALE, PUBMED_ITERS, train_counters)
+    torch.cuda.empty_cache()
+
+    # -- 18. the examples on the card ---------------------------------------
+    ex_launches = examples_phase(card, (kernel.fold_in_docs,)
+                                 + train_counters)
+    k3_row["launches"] += ex_launches["fold_in_docs"]
+    errs = dict(lda_sample_tiles=k1_err, phi_delta_tiles=k2_err,
+                phi_update_tiles=k4_err)
+    for row in train_rows:
+        row["launches"] += pm_launches[row["name"]] + ex_launches[row["name"]]
+        row["max_abs_err"] = max(row["max_abs_err"], errs[row["name"]])
     print(json.dumps({"kernels": [k3_row] + train_rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(card, flush=True)

@@ -12,6 +12,9 @@ and the phi-rebuild kernel K4 (``phi_update.cu``) and the fold-in kernel K3
     python3 kernel_probe.py --serve-sharded N   # V-sharded serving, N phi
                                                 # blocks, one a card (else
                                                 # round-robin over cards)
+    python3 kernel_probe.py --pubmed-memory S1,S2,...   # peak device
+                                                # memory of a PubMed-shaped
+                                                # iteration at each scale
 
 Each source is built several ways with ``-D``, one ``nvcc`` each, all
 started together:
@@ -395,9 +398,88 @@ def serve_sharded(n: int) -> int:
     return 0
 
 
+def pubmed_memory(scales) -> int:
+    """Per PubMed-shaped scale: host seconds to build and tile, then the
+    peak device memory (``max_memory_allocated``, reset before each step)
+    of theta from z, theta -> ELL, one ``lda_iteration`` and one likelihood
+    eval, each from the initial state, ``fit`` for two iterations with an
+    eval after each, and the host's peak resident memory."""
+    import resource
+
+    import torch
+
+    from repro_torch.configs import lda_pubmed
+    from repro_torch.core import trainer, updates
+    from repro_torch.core.corpus import tile_corpus
+    from repro_torch.kernels.phi_update import ops as phi_ops
+    from repro_torch.train import fit
+
+    if not torch.cuda.is_available():
+        print("kernel_probe: no CUDA card visible; nothing was run",
+              file=sys.stderr)
+        return 2
+    card = cs.card_line()
+    dev = torch.device("cuda:0")
+    total = torch.cuda.get_device_properties(dev).total_memory
+    for s in scales:
+        t0 = time.perf_counter()
+        corpus = lda_pubmed.scaled(s, seed=0)
+        t_corpus = time.perf_counter() - t0
+        cfg = trainer.resolve_config(lda_pubmed.CONFIG, corpus)
+        t0 = time.perf_counter()
+        shard = tile_corpus(corpus, 1, cfg.tile_tokens)[0]
+        t_tile = time.perf_counter() - t0
+        shard = shard.to(dev)
+        phi_ops.shard_segments(shard)
+        phi_ops.shard_rows_to_zero(shard)
+        st = trainer.init_state(cfg, shard)
+        torch.cuda.synchronize()
+        K, D = cfg.num_topics, shard.num_docs_local
+        P = cfg.ell_capacity
+        dt = updates.ell_dtype(K, shard.max_doc_length)
+        peaks = {"resident": torch.cuda.memory_allocated(dev)}
+
+        def peak(name, fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated(dev)
+            peaks[name + "_s"] = time.perf_counter() - t0
+            return out
+
+        theta = peak("theta_from_z", lambda: updates.theta_from_z(
+            st.z, shard.token_doc, shard.token_mask, D, K))
+        ell = peak("theta_to_ell",
+                   lambda: updates.theta_to_ell(theta, P, dt))
+        del ell, theta
+        peak("lda_iteration", lambda: trainer.lda_iteration(cfg, shard, st))
+        peak("lda_iteration_again",
+             lambda: trainer.lda_iteration(cfg, shard, st))
+        peak("log_likelihood",
+             lambda: trainer.log_likelihood(cfg, shard, st))
+        peak("fit_2_iterations", lambda: fit(
+            corpus, lda_pubmed.CONFIG, 2, device=dev, shard=shard,
+            eval_every=1))
+        cs.emit("pubmed_memory", card=card, scale=s, docs=corpus.num_docs,
+                V=corpus.num_words, tokens=corpus.num_tokens, P=P,
+                ell_dtype=str(dt), max_doc_length=shard.max_doc_length,
+                tiles=int(shard.token_doc.shape[0]), corpus_s=t_corpus,
+                tiling_s=t_tile, total_memory=total, peaks=peaks,
+                host_peak_rss_kb=resource.getrusage(
+                    resource.RUSAGE_SELF).ru_maxrss)
+        del st, shard, corpus
+        torch.cuda.empty_cache()
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--pubmed-memory":
+        return pubmed_memory([float(x) for x in sys.argv[2].split(",")])
     if len(sys.argv) == 3 and sys.argv[1] == "--smoke-of":
         return smoke_of(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--serve-of":

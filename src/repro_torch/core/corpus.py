@@ -264,7 +264,13 @@ def ell_capacity(corpus: Corpus, num_topics: int, quantile: float = 1.0) -> int:
     a multiple of 128."""
     lengths = corpus.doc_lengths()
     q = int(np.quantile(lengths, quantile)) if quantile < 1.0 else int(lengths.max())
-    cap = max(1, min(num_topics, q))
+    return ell_width(q, num_topics)
+
+
+def ell_width(longest: int, num_topics: int) -> int:
+    """The ELL pad width for documents of at most ``longest`` tokens:
+    min(K, longest) rounded up to 8, 16, 32, 64 or a multiple of 128."""
+    cap = max(1, min(num_topics, int(longest)))
     for mult in (8, 16, 32, 64, 128):
         if cap <= mult:
             return mult

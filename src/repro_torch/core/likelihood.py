@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.updates import THETA_ROW_BLOCK
+
 _F = torch.float32
 
 
@@ -22,14 +24,21 @@ def _lgamma_const(x: float, device) -> torch.Tensor:
 
 def doc_term(theta: torch.Tensor, doc_length: torch.Tensor,
              alpha: float) -> torch.Tensor:
-    """Document side of the joint LL. theta: (D, K) counts; doc_length: (D,)."""
+    """Document side of the joint LL. theta: (D, K) counts; doc_length: (D,).
+    The per-document sums over topics are taken ``THETA_ROW_BLOCK`` rows at
+    a time, which bounds the float32 temporaries (a row's sum is its own)."""
     K = theta.shape[1]
     dev = theta.device
+    inner = torch.empty(theta.shape[0], dtype=_F, device=dev)
+    la = _lgamma_const(alpha, dev)
+    for r in range(0, theta.shape[0], THETA_ROW_BLOCK):
+        inner[r:r + THETA_ROW_BLOCK] = (
+            torch.lgamma(theta[r:r + THETA_ROW_BLOCK].to(_F) + alpha)
+            - la).sum(-1)
     per_doc = (
         _lgamma_const(K * alpha, dev)
         - torch.lgamma(doc_length.to(_F) + K * alpha)
-        + (torch.lgamma(theta.to(_F) + alpha)
-           - _lgamma_const(alpha, dev)).sum(-1))
+        + inner)
     # empty (padding) docs contribute 0
     return torch.where(doc_length > 0, per_doc,
                        torch.zeros((), dtype=_F, device=dev)).sum()

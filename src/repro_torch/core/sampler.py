@@ -89,6 +89,16 @@ def draw_sweep_uniforms(generator: torch.Generator, n: int, t: int,
                       device=dev)
 
 
+def draw_initial_topics(generator: torch.Generator, shape, num_topics: int,
+                        device=None) -> torch.Tensor:
+    """Uniform random initial topic assignments of ``shape``, int32 in
+    [0, num_topics), from ``generator`` (on ``device``, its own when not
+    given)."""
+    dev = generator.device if device is None else device
+    return torch.randint(0, num_topics, tuple(shape), generator=generator,
+                         dtype=torch.int32, device=dev)
+
+
 def sample_tiles(
     phi_rows: torch.Tensor,     # (c, K) int — each tile's word row
     phi_sum: torch.Tensor,      # (K,) int

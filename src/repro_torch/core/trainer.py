@@ -162,8 +162,8 @@ def init_state(cfg: LDAConfig, shard: TiledCorpusShard,
     """Uniform random initial assignments (from ``cfg.seed`` unless a
     generator on the shard's device is given)."""
     gen = generator or seeded_generator([cfg.seed], shard.device)
-    z0 = torch.randint(0, cfg.num_topics, tuple(shard.token_doc.shape),
-                       generator=gen, dtype=torch.int32, device=shard.device)
+    z0 = sampler.draw_initial_topics(gen, shard.token_doc.shape,
+                                     cfg.num_topics, shard.device)
     return state_from_z(cfg, shard, z0.to(cfg.topic_dtype), 0, data_group,
                         model_group)
 

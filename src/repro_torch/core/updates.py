@@ -77,6 +77,14 @@ def ell_dtype(num_topics: int, max_doc_length: int) -> torch.dtype:
     return torch.int16 if fits else torch.int32
 
 
+# Rows a block of the passes over a dense (D, K) theta (the ELL's sort, its
+# non-zero count, the likelihood's doc term): the sort's int64 keys, sorted
+# keys and indices take 24 bytes a (doc, topic), a bool sum or a float32
+# lgamma 8 or 12, which at PubMed's D = 8.2M docs and K = 1024 would be
+# 100-200 GB; a block of 2^16 rows bounds each at 1.6 GB.
+THETA_ROW_BLOCK = 1 << 16
+
+
 def ell_topk(theta: torch.Tensor, capacity: int, dtype=torch.int32):
     """Dense counts (..., K) -> ELL ``(counts, topics)`` (..., P) of
     ``dtype`` (int32 unless asked; the cast is the one pass that writes
@@ -85,11 +93,24 @@ def ell_topk(theta: torch.Tensor, capacity: int, dtype=torch.int32):
     The order of ``jax.lax.top_k``: count descending, ties to the lower
     topic id, zero counts last in id order — a *stable* sort on -count.
     ``torch.topk`` breaks ties in another order, which would reorder the
-    sparse prefix sum and change draws, so it is not used."""
-    order = torch.sort(-theta.to(torch.int64), dim=-1, stable=True).indices
-    topics = order[..., :capacity]
-    counts = torch.gather(theta, -1, topics)
-    return counts.to(dtype), topics.to(dtype)
+    sparse prefix sum and change draws, so it is not used.  The rows are
+    sorted ``THETA_ROW_BLOCK`` at a time (each row's order is its own, so
+    the ELL is the same), which bounds the sort's temporaries."""
+    K = theta.shape[-1]
+    capacity = min(capacity, K)
+    flat = theta.reshape(-1, K)
+    counts = torch.empty((flat.shape[0], capacity), dtype=dtype,
+                         device=theta.device)
+    topics = torch.empty_like(counts)
+    for r in range(0, flat.shape[0], THETA_ROW_BLOCK):
+        block = flat[r:r + THETA_ROW_BLOCK]
+        order = torch.sort(-block.to(torch.int64), dim=-1,
+                           stable=True).indices[:, :capacity]
+        counts[r:r + THETA_ROW_BLOCK] = torch.gather(block, -1,
+                                                     order).to(dtype)
+        topics[r:r + THETA_ROW_BLOCK] = order.to(dtype)
+    lead = theta.shape[:-1]
+    return counts.view(*lead, capacity), topics.view(*lead, capacity)
 
 
 def theta_to_ell(theta: torch.Tensor, capacity: int, dtype=torch.int32):
@@ -100,8 +121,12 @@ def theta_to_ell(theta: torch.Tensor, capacity: int, dtype=torch.int32):
     guarantee capacity >= max K_d (exact mode) or route flagged docs to the
     dense sampler.  Padding entries have count 0 and add 0 to p1."""
     counts, topics = ell_topk(theta, capacity, dtype)
-    nnz = (theta > 0).sum(dim=-1)
-    return counts, topics, nnz > capacity
+    flat = theta.reshape(-1, theta.shape[-1])
+    over = torch.empty(flat.shape[0], dtype=torch.bool, device=theta.device)
+    for r in range(0, flat.shape[0], THETA_ROW_BLOCK):
+        over[r:r + THETA_ROW_BLOCK] = torch.count_nonzero(
+            flat[r:r + THETA_ROW_BLOCK], dim=-1) > capacity
+    return counts, topics, over.view(theta.shape[:-1])
 
 
 def phi_totals(phi_vk: torch.Tensor) -> torch.Tensor:

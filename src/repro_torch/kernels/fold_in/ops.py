@@ -14,28 +14,18 @@ import torch
 from . import kernel, ref
 
 
-def init_assignments(generator: torch.Generator, batch: int, length: int,
-                     num_topics: int, device) -> torch.Tensor:
-    """The fold-in's initial (B, L) int32 topic assignments."""
-    return torch.randint(0, num_topics, (batch, length), generator=generator,
-                         dtype=torch.int32, device=device)
-
-
-def sweep_uniforms(generator: torch.Generator, n_sweeps: int, batch: int,
-                   length: int, device) -> torch.Tensor:
-    """Every sweep's (n_sweeps, B, L, 2) float32 uniforms in [0, 1)."""
-    return torch.rand((n_sweeps, batch, length, 2), generator=generator,
-                      dtype=torch.float32, device=device)
-
-
 def draw_fold_in_randoms(generator: torch.Generator, batch: int, length: int,
                          num_topics: int, n_sweeps: int, device):
     """The fold-in's entire randomness budget, drawn up front on ``device``
-    (the generator must live there too).
+    (the generator must live there too): the initial assignments, then
+    every sweep's uniforms.
 
-    Returns (z0 (B, L) int32, uniforms (n_sweeps, B, L, 2) float32)."""
-    z0 = init_assignments(generator, batch, length, num_topics, device)
-    return z0, sweep_uniforms(generator, n_sweeps, batch, length, device)
+    Returns (z0 (B, L) int32, uniforms (n_sweeps, B, L, 2) float32 in
+    [0, 1))."""
+    z0 = torch.randint(0, num_topics, (batch, length), generator=generator,
+                       dtype=torch.int32, device=device)
+    return z0, torch.rand((n_sweeps, batch, length, 2), generator=generator,
+                          dtype=torch.float32, device=device)
 
 
 def _hyper(alpha, beta, device) -> torch.Tensor:

@@ -835,3 +835,39 @@ def test_nccl_fit_makes_no_host_sync(nccl_results, M):
     """fit(mesh=...) under sanitize: a host-device sync inside a sweep,
     the syncs and (M = 2) the overlapped per-chunk syncs included, raises."""
     assert nccl_results[f"sanitize-{M}"] is True
+
+
+# -- the kernel contracts' mirrors against the built libraries ---------------
+
+def test_launch_contract_mirrors_match_the_built_kernels(dev):
+    """``kernels/*/contract.py`` mirror what the launches ask the built
+    libraries: K1's shared-memory layout over every contract case, its
+    tiles a CTA, and K2's / K4's segment length."""
+    from repro_torch.core.sampler import pick_search_block
+    from repro_torch.kernels.lda_sample import contract as c1
+    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.phi_update import contract as c24
+    from repro_torch.kernels.phi_update import kernel as k24
+
+    for name, n, t, K, P, eb in c1.cases():
+        assert k1.smem_bytes(t, K, P, eb) == c1.smem_bytes(
+            t, K, P, pick_search_block(K), eb), name
+    assert k1.tiles_per_cta() == c1.TILES_PER_CTA
+    assert k24.segment_tiles() == c24.SEGMENT_TILES
+
+
+def test_fold_in_launches_at_every_contract_case(dev):
+    """K3 picks one of the contract's candidate shapes at every serving
+    bucket, doc slice and test shape, and launches there (one sweep, the
+    result checked against the plain version's theta sums)."""
+    from repro_torch.kernels.fold_in import contract
+
+    for name, B, L, K, P in contract.cases():
+        assert kernel.launch_shape(B, L, K, P) in \
+            contract.candidate_shapes(L), name
+        args, kw = case(K, dev, B=B, L=L, V=64, burn_in=0, samples=1,
+                        seed=B + L, empty_last=False, P=P)
+        k = kernel.fold_in_docs(*args, **kw)
+        r = ref.fold_in_docs_ref(*args, **kw)
+        torch.cuda.synchronize()
+        assert k[0].sum() == r[0].sum(), name

@@ -1,6 +1,7 @@
-"""Package rules of the port: repro_torch (and chip_smoke.py) import neither
-jax nor anything of the JAX package, and entry points never fall back to
-the CPU silently."""
+"""Package rules of the port: repro_torch (and chip_smoke.py,
+kernel_probe.py and examples/torch_*.py) import neither jax nor anything
+of the JAX package, and entry points never fall back to the CPU
+silently."""
 import ast
 import os
 import pathlib
@@ -52,6 +53,8 @@ print("ok", len({_port_modules()!r}))
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + [str(p.relative_to(ROOT))
+       for p in (ROOT / "examples").glob("torch_*.py")]
     + ["chip_smoke.py", "kernel_probe.py"]))
 def test_no_jax_or_repro_imports_in_source(path):
     tree = ast.parse((ROOT / path).read_text())
