@@ -110,6 +110,32 @@ The examples on the card:
     through their ``main`` at their default sizes on cuda:0, the four
     kernels' counters read around them.
 
+The LM zoo's serving path (``repro_torch.models``; no kernel of the
+port's own: its products are torch einsums, as the reference's are XLA
+einsums):
+
+19. every architecture of ``configs/archs.py`` at its ``smoke()`` width in
+    float32 (TF32 off), weights and a stand-in state of 8 tokens drawn on
+    the CPU from a seed: a prefill of 16 tokens and 4 decode steps (max_len
+    32, so a window-8 ring wraps) on cuda:0 and on the CPU; but for the two
+    MoE archs, a 16-token prompt decoded token by token on the card against
+    its prefill (whisper against its encoder's keys and values);
+20. qwen3-4b at full width (36 layers, d_model 2560, 32 query and 8 KV
+    heads of 128, d_ff 9728, vocabulary 151,936 padded to 153,600; 4.03B
+    parameters, 8.05 GB in bf16), weights drawn on the card from a seed:
+    (a) the same weights in float32, a 64-token prompt's prefill against
+    its decode token by token; (b) bf16 against that float32 model, 8
+    teacher-forced decode steps (max error relative to scale, top-1
+    agreement); (c) serving: stand-in caches of 1024 tokens (max_len
+    2048) at batch 8 and 32, 64 greedy bf16 decode steps each (tokens/s,
+    ms a step, the step's bytes bound: weights plus every cache slot read,
+    over 3.35 TB/s), then ``torch.profiler`` over 4 steps (device-busy
+    share); (d) a prefill of 4096 tokens at batch 1 (the chunked causal
+    path) against its FLOP bound at 989 TFLOP/s (dense bf16); the phase's
+    ``peak_bytes``; everything freed after;
+21. ``repro_torch.launch.serve.main`` at the reference's defaults (smoke
+    width, batch 8, 16 steps) on cuda:0 for qwen3-4b and mamba2-130m.
+
 Bounds (fault F2: the kernels' prefix sums are float32 adds in another
 order than torch.cumsum's, so a draw on a float boundary may flip):
 
@@ -144,7 +170,13 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
   phi_sum), the byte wire returning the delta exactly, both wires training
   the same state, phi == K4(z) after each full-width run, and in every
   mesh run K1 and K2 launched once per iteration plus the warm-up, the
-  LL/token rising, phi_sum == phi.sum(0), phi.sum() == number of tokens.
+  LL/token rising, phi_sum == phi.sum(0), phi.sum() == number of tokens;
+* the LM zoo: every smoke arch's logits on the card within 1e-4 of the
+  CPU's (of the logits' scale), decode == prefill within 1e-4 relative,
+  finite, the position advanced; qwen3-4b: 4,026,727,936 parameters, the
+  float32 decode == prefill within 1e-3 of scale, bf16 within 0.1 of
+  scale of float32, finite logits and the position advanced at every
+  batch; the launcher runs on cuda:0 with finite logits.
 
 Fails (non-zero exit, no result line) without a CUDA card, outside a
 checkout of the repository, or when any phase fails.
@@ -181,6 +213,20 @@ MESH_2D_SCALE = 0.1            # the 2d (1 x 1) run's corpus
 MESH_2D_ITERS = 3
 PUBMED_SCALE = 0.75            # lda_pubmed.scaled: the depth one card holds
 PUBMED_ITERS = 5
+SEED = 0
+
+# the LM zoo (phases 19-21)
+LM_B, LM_S, LM_PREFILL, LM_STEPS, LM_MAX = 2, 16, 8, 4, 32
+LM_ARCH_REL = 1e-4             # card vs CPU, decode vs prefill (float32)
+QWEN_PARAMS = 4_026_727_936    # qwen3-4b's tensors, vocabulary padded to 153,600
+QWEN_PROMPT = 64
+QWEN_F32_REL = 1e-3            # float32 decode vs prefill, of the scale
+QWEN_BF16_STEPS = 8
+QWEN_BF16_REL = 0.1            # bf16 vs float32 of the same weights
+QWEN_BATCHES, QWEN_STEPS, QWEN_PROFILED = (8, 32), 64, 4
+QWEN_PREFILL, QWEN_MAX = 1024, 2048
+QWEN_S, QWEN_PREFILL_CALLS = 4096, 3
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 (data sheet)
 
 BATCH, BUCKETS, SWEEPS = 32, (32, 64, 128, 256), (8, 4)
 SERVE_DOCS, SWAP_DOCS = 256, 32
@@ -493,7 +539,6 @@ def profile_iterations(cfg, shard, state, iters: int) -> dict:
     kernels with the most device time; ``device_time_visible`` is false
     when ``key_averages()`` holds no device time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import trainer
@@ -508,12 +553,22 @@ def profile_iterations(cfg, shard, state, iters: int) -> dict:
             st, _ = trainer.lda_iteration(cfg, shard, st)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return device_busy(prof, wall_ms, iterations=iters)
+
+
+def device_busy(prof, wall_ms: float, **fields) -> dict:
+    """A ``torch.profiler`` window's device-busy time (the union of the
+    device events' intervals), its share of the host's ``wall_ms`` and of
+    the device span, and the ten kernels with the most device time;
+    ``device_time_visible`` is false when ``key_averages()`` holds no
+    device time."""
+    from torch.autograd import DeviceType
+
     visible = sum(e.self_device_time_total for e in prof.key_averages()) > 0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
     if not (visible and dev):
-        return dict(iterations=iters, window_ms=wall_ms,
-                    device_time_visible=False)
+        return dict(fields, window_ms=wall_ms, device_time_visible=False)
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:                      # union of the device intervals
@@ -527,7 +582,7 @@ def profile_iterations(cfg, shard, state, iters: int) -> dict:
         ent[1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
     span_us = spans[-1][1] - spans[0][0]
-    return dict(iterations=iters, window_ms=wall_ms,
+    return dict(fields, window_ms=wall_ms, device_events=len(dev),
                 device_time_visible=True, device_busy_ms=busy_us / 1e3,
                 busy_share=busy_us / 1e3 / wall_ms,
                 device_span_ms=span_us / 1e3,
@@ -965,6 +1020,295 @@ def examples_phase(card: str, counters) -> dict:
             served["perplexity"].perplexity):
         raise AssertionError("the serving example did not swap to v3")
     return launches
+
+
+def lm_run(cfg, params, state, batch: dict, tokens, dev):
+    """The port's prefill of ``batch`` and the decode of ``tokens`` (B, n)
+    from ``state``, on ``dev`` from copies of the given trees: (prefill
+    logits, the n steps' logits (B, n, V), the final state)."""
+    import torch
+
+    from repro_torch.models import zoo
+    from repro_torch.models.common import tree_map
+
+    mv = lambda tree: tree_map(lambda a: a.to(dev, copy=True), tree)  # noqa: E731
+    params, state = mv(params), mv(state)
+    pre = zoo.make_prefill_step(cfg)(
+        params, {k: v.to(dev) for k, v in batch.items()})
+    step = zoo.make_decode_step(cfg)
+    outs = []
+    for i in range(tokens.shape[1]):
+        logits, state = step(params, state, tokens[:, i:i + 1].to(dev))
+        outs.append(logits)
+    return pre, torch.cat(outs, 1), state
+
+
+def rel_err(got, ref, vocab: int) -> float:
+    """max |got - ref| over the real vocabulary, relative to max |ref|."""
+    got, ref = got[..., :vocab].float().cpu(), ref[..., :vocab].float().cpu()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def decode_vs_prefill(cfg, params, prompt, dev, max_len: int,
+                      frames=None) -> float:
+    """A prompt decoded token by token from an empty state against the
+    prefill's last logits (whisper decodes against its encoder's K/V)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import zoo
+
+    batch = {"tokens": prompt}
+    state = zoo.init_decode_state(cfg, prompt.shape[0], max_len,
+                                  dtype=cfg.dtype, device=dev)
+    if frames is not None:
+        batch["frames"] = frames
+        state = state._replace(cross_kv=zoo.cross_kv_from_encoder(
+            params, cfg, tf.encode(params, cfg, frames), cfg.dtype))
+    pre = zoo.make_prefill_step(cfg)(params, batch)
+    step = zoo.make_decode_step(cfg)
+    for i in range(prompt.shape[1]):
+        logits, state = step(params, state, prompt[:, i:i + 1])
+    return rel_err(logits, pre, cfg.vocab_size)
+
+
+def lm_arch_vs_cpu(name: str, dev) -> dict:
+    """Phase 19 for one architecture at its smoke() width, float32 (TF32
+    off): weights and a stand-in state of LM_PREFILL tokens drawn on the
+    CPU from a seed; a prefill of LM_S tokens and LM_STEPS decode steps
+    (max_len LM_MAX, so a window-8 ring wraps) on ``dev`` and on the CPU;
+    and, but for the MoE archs (their capacity depends on the token count,
+    so decode and prefill drop different routings, as in the reference),
+    the decode of an LM_S-token prompt against its prefill on ``dev``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.archs import smoke
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import zoo
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.convert import flatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(smoke(name), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(SEED)
+    params = tf.init_params(cfg, gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (LM_B, LM_S),
+                                     generator=gen)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn(LM_B, cfg.encoder_frames, cfg.d_model,
+                                      generator=gen)
+    if cfg.vision_tokens:
+        batch["patches"] = torch.randn(LM_B, cfg.vision_tokens, cfg.d_model,
+                                       generator=gen)
+    state = zoo.init_decode_state(cfg, LM_B, LM_MAX, prefill_len=LM_PREFILL,
+                                  generator=gen, dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_B, LM_STEPS),
+                           generator=gen)
+    card = lm_run(cfg, params, state, batch, tokens, dev)
+    host = lm_run(cfg, params, state, batch, tokens, torch.device("cpu"))
+    hs = flatten(host[2])
+    state_err = max(float((a.cpu().double() - hs[k].double()).abs().max())
+                    for k, a in flatten(card[2]).items())
+    row = dict(arch=name, prefill_rel_err=rel_err(card[0], host[0],
+                                                  cfg.vocab_size),
+               decode_rel_err=rel_err(card[1], host[1], cfg.vocab_size),
+               state_max_abs_err=state_err,
+               position=int(card[2].position),
+               finite=bool(torch.isfinite(card[1].float()).all()))
+    if not cfg.is_moe:
+        pd = tree_map(lambda a: a.to(dev), params)
+        row["decode_vs_prefill_rel_err"] = decode_vs_prefill(
+            cfg, pd, batch["tokens"].to(dev), dev, LM_MAX,
+            batch["frames"].to(dev) if cfg.encoder_layers else None)
+    return row
+
+
+def lm_archs_phase(card: str, dev="cuda:0") -> None:
+    """Phase 19: every architecture of configs/archs.py at smoke() width,
+    the card against the CPU (``lm_arch_vs_cpu``)."""
+    import torch
+
+    from repro_torch.configs.archs import ARCHS
+
+    t0 = time.perf_counter()
+    rows = [lm_arch_vs_cpu(name, torch.device(dev)) for name in ARCHS]
+    emit("lm_archs", card=card, archs=rows, seconds=time.perf_counter() - t0)
+    for r in rows:
+        bad = [k for k in ("prefill_rel_err", "decode_rel_err",
+                           "decode_vs_prefill_rel_err")
+               if r.get(k, 0.0) > LM_ARCH_REL]
+        if bad or not r["finite"] or r["position"] != LM_PREFILL + LM_STEPS:
+            raise AssertionError(f"{r['arch']}: {bad or r}")
+
+
+def cache_bytes(state) -> int:
+    """Bytes of the KV caches' keys and values (the reference's ``_sdpa``
+    reads every slot of a cache each decode step)."""
+    from repro_torch.models.convert import flatten
+
+    return sum(a.numel() * a.element_size() for k, a in
+               flatten(state).items() if k.endswith((".k", ".v")))
+
+
+def qwen_phase(card: str, dev="cuda:0") -> None:
+    """Phase 20: qwen3-4b at full width on the card, weights drawn from a
+    seeded generator there (bf16, the config's dtype).  (a) float32 (the
+    same weights cast, TF32 off): a QWEN_PROMPT-token prompt's prefill
+    against its decode token by token (max_len 2 * QWEN_PROMPT); (b) bf16
+    against that float32 model, QWEN_BF16_STEPS teacher-forced decode
+    steps; (c) serving: stand-in caches of QWEN_PREFILL tokens (max_len
+    QWEN_MAX) at each of QWEN_BATCHES, QWEN_STEPS greedy bf16 steps timed,
+    beside the step's bytes bound, then ``torch.profiler`` over
+    QWEN_PROFILED steps; (d) a prefill of QWEN_S tokens (batch 1, the
+    chunked causal path) beside its FLOP bound.  Everything is freed at
+    the end."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.archs import QWEN3_4B as cfg
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import zoo
+    from repro_torch.models.common import padded_vocab, tree_map
+    from repro_torch.models.convert import flatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = flatten(params)
+    n_params = sum(a.numel() for a in leaves.values())
+    w_bytes = sum(a.numel() * a.element_size() for a in leaves.values())
+    V = cfg.vocab_size
+    step = zoo.make_decode_step(cfg)
+    prefill = zoo.make_prefill_step(cfg)
+
+    # (a) float32: decode token by token == prefill
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = tree_map(lambda a: a.float(), params)
+    step32 = zoo.make_decode_step(c32)
+    prompt = torch.randint(0, V, (2, QWEN_PROMPT), generator=gen, device=dev)
+    f32_rel = decode_vs_prefill(c32, p32, prompt, dev, 2 * QWEN_PROMPT)
+
+    # (b) bf16 against float32 of the same weights, teacher-forced
+    s16 = zoo.init_decode_state(cfg, 2, QWEN_BF16_STEPS, device=dev)
+    s32 = zoo.init_decode_state(c32, 2, QWEN_BF16_STEPS, dtype=torch.float32,
+                                device=dev)
+    errs, agree = [], 0
+    for i in range(QWEN_BF16_STEPS):
+        l16, s16 = step(params, s16, prompt[:, i:i + 1])
+        l32, s32 = step32(p32, s32, prompt[:, i:i + 1])
+        errs.append(rel_err(l16, l32, V))
+        agree += int((l16[..., :V].argmax(-1) == l32[..., :V].argmax(-1))
+                     .sum())
+    bf16_rel = max(errs)
+    top1 = agree / (2 * QWEN_BF16_STEPS)
+    del p32, s16, s32, l16, l32
+    torch.cuda.empty_cache()
+
+    # (c) serving: greedy bf16 decode against stand-in caches
+    serve = []
+    for B in QWEN_BATCHES:
+        st = zoo.init_decode_state(cfg, B, QWEN_MAX, prefill_len=QWEN_PREFILL,
+                                   generator=gen)
+        tok = torch.randint(0, V, (B, 1), generator=gen, device=dev)
+        for _ in range(2):                                   # warm-up
+            logits, st = step(params, st, tok)
+            tok = logits[..., :V].argmax(-1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(QWEN_STEPS):
+            logits, st = step(params, st, tok)
+            tok = logits[..., :V].argmax(-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kv = cache_bytes(st)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for _ in range(QWEN_PROFILED):
+                logits, st = step(params, st, tok)
+                tok = logits[..., :V].argmax(-1)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t1) * 1e3
+        busy = device_busy(prof, prof_ms, steps=QWEN_PROFILED)
+        busy["top_kernels"] = busy.get("top_kernels", [])[:5]
+        serve.append(dict(
+            batch=B, steps=QWEN_STEPS, tokens_per_s=B * QWEN_STEPS / wall,
+            ms_per_step=wall / QWEN_STEPS * 1e3, weight_bytes=w_bytes,
+            kv_cache_bytes=kv,
+            bound_ms=(w_bytes + kv) / HBM_BYTES_PER_S * 1e3,
+            position=int(st.position),
+            finite=bool(torch.isfinite(logits.float()).all()), profile=busy))
+        del st, logits
+        torch.cuda.empty_cache()
+
+    # (d) prefill of QWEN_S tokens, batch 1 (the chunked causal path)
+    toks = torch.randint(0, V, (1, QWEN_S), generator=gen, device=dev)
+    pre = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(QWEN_PREFILL_CALLS):
+        pre = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    pre_s = (time.perf_counter() - t0) / QWEN_PREFILL_CALLS
+    vp = padded_vocab(V)
+    # dense FLOPs: every weight but the embedding's gather once a token,
+    # the tied head on the last token, causal attention (QK and PV on
+    # half the S x S pairs)
+    flops = (2 * (n_params - vp * cfg.d_model) * QWEN_S
+             + 2 * cfg.d_model * vp
+             + 2 * QWEN_S * QWEN_S * cfg.num_heads * cfg.hd * cfg.num_layers)
+    peak = torch.cuda.max_memory_allocated(dev)
+    emit("lm_qwen3_4b", card=card, arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+         head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=V, padded_vocab=vp,
+         params=n_params, weight_bytes=w_bytes, init_s=init_s,
+         f32_decode_vs_prefill_rel_err=f32_rel, f32_prompt=QWEN_PROMPT,
+         bf16_vs_f32_rel_err=bf16_rel, bf16_vs_f32_step_errs=errs,
+         bf16_top1_agreement=top1, serve=serve,
+         prefill=dict(batch=1, S=QWEN_S, ms=pre_s * 1e3,
+                      tokens_per_s=QWEN_S / pre_s, flops=flops,
+                      bound_ms=flops / BF16_FLOPS * 1e3,
+                      finite=bool(torch.isfinite(pre.float()).all())),
+         peak_bytes=peak)
+    del params, pre, leaves, prompt, toks
+    torch.cuda.empty_cache()
+    if f32_rel > QWEN_F32_REL:
+        raise AssertionError(f"qwen3-4b float32 decode vs prefill {f32_rel}")
+    if bf16_rel > QWEN_BF16_REL:
+        raise AssertionError(f"qwen3-4b bf16 vs float32 {bf16_rel}")
+    for row in serve:
+        if not row["finite"] or row["position"] != (
+                QWEN_PREFILL + 2 + QWEN_STEPS + QWEN_PROFILED):
+            raise AssertionError(f"qwen3-4b serving at B = {row['batch']}")
+    if n_params != QWEN_PARAMS:
+        raise AssertionError(f"qwen3-4b has {n_params} parameters")
+
+
+def lm_launcher_phase(card: str) -> None:
+    """Phase 21: ``repro_torch.launch.serve.main`` on cuda:0 at the
+    reference's defaults (batch 8, 16 steps, max_len 128) for qwen3-4b and
+    mamba2-130m."""
+    from repro_torch.launch import serve
+
+    rows = []
+    for arch in ("qwen3-4b", "mamba2-130m"):
+        t0 = time.perf_counter()
+        out = serve.main(["--arch", arch])
+        rows.append(dict(out, wall_s=time.perf_counter() - t0))
+    emit("lm_serve_launcher", card=card, runs=rows)
+    for r in rows:
+        if not r["finite"] or r["position"] != 17 or \
+                not r["device"].startswith("cuda"):
+            raise AssertionError(f"launcher: {r}")
 
 
 def train_phases(card: str, scale: float, iters: int,
@@ -1557,6 +1901,12 @@ def main() -> int:
     for row in train_rows:
         row["launches"] += pm_launches[row["name"]] + ex_launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], errs[row["name"]])
+    torch.cuda.empty_cache()
+
+    # -- 19-21. the LM zoo's serving path ------------------------------------
+    lm_archs_phase(card)
+    qwen_phase(card)
+    lm_launcher_phase(card)
     print(json.dumps({"kernels": [k3_row] + train_rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(card, flush=True)

@@ -1,0 +1,4 @@
+"""Assigned architecture config: QWEN3_MOE_30B (see archs.py for the source)."""
+from repro_torch.configs.archs import QWEN3_MOE_30B as CONFIG, smoke as _smoke
+
+SMOKE = _smoke(CONFIG.name)

@@ -1,0 +1,4 @@
+"""Assigned architecture config: RECURRENTGEMMA_2B (see archs.py for the source)."""
+from repro_torch.configs.archs import RECURRENTGEMMA_2B as CONFIG, smoke as _smoke
+
+SMOKE = _smoke(CONFIG.name)

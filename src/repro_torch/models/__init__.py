@@ -1,0 +1,8 @@
+"""The LM zoo's serving path: the ten architectures of ``configs/archs.py``
+(dense, MoE, hybrid RG-LRU, Mamba2 SSD, enc-dec, VLM), prefill and decode.
+
+Plain functions on ``NamedTuple`` parameter structures, as in
+``repro.models``: each pattern slot's layers are stacked ``(num_blocks,
+...)``, so the reference's weights and decode states map onto the port's
+key for key (``convert.py``).
+"""

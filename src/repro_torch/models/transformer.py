@@ -1,0 +1,238 @@
+"""Model assembly: decoder layers, blocks, heads, prefill forward.
+
+The port of ``repro.models.transformer``, as plain functions on
+``NamedTuple`` parameter structures (not ``nn.Module``s): a *block* is one
+repetition of ``cfg.pattern``, and each pattern slot's parameters are
+stacked with a leading ``(num_blocks,)`` axis, exactly as the reference
+stacks them for its ``lax.scan``, so its weights map onto these key for key
+(``convert.py``).  ``_scan_blocks`` is a Python loop over the blocks; it
+needs no remat, since nothing here runs a backward.  ``tail`` holds the
+layers outside the pattern (recurrentgemma's trailing ``(R, R)``).  The
+enc-dec (whisper) and VLM (internvl2) models wrap the same decoder with
+stubbed frontends: precomputed frame or patch embeddings come in with the
+batch.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from . import attention as attn_lib
+from . import moe as moe_lib
+from . import recurrent as rec_lib
+from .common import (LayerSpec, ModelConfig, dense, init_dense, padded_vocab,
+                     rms_norm, scalar, softcap, tree_map, tree_stack)
+
+
+class MLPParams(NamedTuple):
+    w_gate: torch.Tensor   # (D, F)
+    w_up: torch.Tensor     # (D, F)
+    w_down: torch.Tensor   # (F, D)
+
+
+def init_mlp(cfg: ModelConfig, generator: torch.Generator) -> MLPParams:
+    D, Fd = cfg.d_model, cfg.d_ff
+    return MLPParams(
+        w_gate=init_dense((D, Fd), D ** -0.5, cfg.dtype, generator=generator),
+        w_up=init_dense((D, Fd), D ** -0.5, cfg.dtype, generator=generator),
+        w_down=init_dense((Fd, D), Fd ** -0.5, cfg.dtype, generator=generator),
+    )
+
+
+def mlp(p: MLPParams, x: torch.Tensor) -> torch.Tensor:
+    return dense(p.w_down, F.silu(dense(p.w_gate, x)) * dense(p.w_up, x))
+
+
+class LayerParams(NamedTuple):
+    """One layer: mixer (attn/rglru/ssd) + ffn (mlp/moe) + norms.
+
+    ``cross``/``norm_c`` are the enc-dec cross-attention params (whisper
+    decoder); None elsewhere."""
+
+    norm1: torch.Tensor
+    mixer: Any
+    norm2: torch.Tensor
+    ffn: Any
+    cross: Any = None
+    norm_c: torch.Tensor | None = None
+
+
+def _norm_init(cfg: ModelConfig, dev) -> torch.Tensor:
+    fill = torch.zeros if cfg.rms_offset else torch.ones
+    return fill(cfg.d_model, dtype=torch.float32, device=dev)
+
+
+def init_layer(cfg: ModelConfig, spec: LayerSpec, generator: torch.Generator,
+               cross: bool = False) -> LayerParams:
+    if spec.kind in ("global", "local"):
+        mixer = attn_lib.init_attn(cfg, generator)
+    elif spec.kind == "rglru":
+        mixer = rec_lib.init_rglru(cfg, generator)
+    elif spec.kind == "ssd":
+        mixer = rec_lib.init_ssd(cfg, generator)
+    else:
+        raise ValueError(spec.kind)
+    ffn = (moe_lib.init_moe(cfg, generator) if cfg.is_moe
+           else init_mlp(cfg, generator) if cfg.d_ff > 0 else None)
+    dev = generator.device
+    return LayerParams(
+        norm1=_norm_init(cfg, dev), mixer=mixer, norm2=_norm_init(cfg, dev),
+        ffn=ffn,
+        cross=attn_lib.init_attn(cfg, generator) if cross else None,
+        norm_c=_norm_init(cfg, dev) if cross else None,
+    )
+
+
+def apply_layer(p: LayerParams, cfg: ModelConfig, spec: LayerSpec,
+                x: torch.Tensor, positions: torch.Tensor | None, state=None,
+                decode: bool = False, enc_kv=None):
+    """Pre-norm residual layer.  Returns (y, new_mixer_state)."""
+    h = rms_norm(p.norm1, x, cfg.norm_eps, cfg.rms_offset)
+    new_state = None
+    if spec.kind in ("global", "local"):
+        window = spec.window if spec.kind == "local" else None
+        if decode:
+            a, new_state = attn_lib.decode_attention(p.mixer, cfg, h, state,
+                                                     window)
+        else:
+            a = attn_lib.attention(p.mixer, cfg, h, positions, window)
+    elif spec.kind == "rglru":
+        a, new_state = rec_lib.rglru(p.mixer, cfg, h, state)
+    elif spec.kind == "ssd":
+        a, new_state = rec_lib.ssd(p.mixer, cfg, h, state)
+    x = x + a
+    if p.cross is not None and enc_kv is not None:
+        h = rms_norm(p.norm_c, x, cfg.norm_eps, cfg.rms_offset)
+        x = x + attn_lib.cross_attention(p.cross, cfg, h, enc_kv)
+    if p.ffn is not None:
+        h = rms_norm(p.norm2, x, cfg.norm_eps, cfg.rms_offset)
+        x = x + (moe_lib.moe_ffn(p.ffn, cfg, h) if cfg.is_moe
+                 else mlp(p.ffn, h))
+    return x, new_state
+
+
+class ModelParams(NamedTuple):
+    embed: torch.Tensor              # (V, D)
+    blocks: Any                      # per slot, stacked (num_blocks, ...)
+    final_norm: torch.Tensor         # (D,)
+    unembed: torch.Tensor | None     # (D, V) if untied
+    encoder: Any = None              # whisper: (stacked encoder layers, norm)
+    enc_proj: Any = None             # vlm frontend projection
+    tail: Any = None                 # layers after the pattern (cfg.tail)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> ModelParams:
+    """Random weights drawn from ``generator`` on its device, in the
+    reference's distributions (its draws differ: weights cross between the
+    packages through ``convert.params_from_numpy``)."""
+    g, dev = generator, generator.device
+    has_cross = cfg.encoder_layers > 0
+    blocks = tuple(
+        tree_stack([init_layer(cfg, spec, g, cross=has_cross)
+                    for _ in range(cfg.num_blocks)])
+        for spec in cfg.pattern)
+    # N(0, 1/sqrt(D)) so the sqrt(D) embedding multiplier yields unit-scale
+    # activations and tied logits stay O(1) at init
+    vp = padded_vocab(cfg.vocab_size)
+    embed = init_dense((vp, cfg.d_model), cfg.d_model ** -0.5, cfg.dtype,
+                       generator=g)
+    encoder = None
+    if cfg.encoder_layers:
+        encoder = (tree_stack([init_layer(cfg, LayerSpec("global"), g)
+                               for _ in range(cfg.encoder_layers)]),
+                   torch.ones(cfg.d_model, dtype=torch.float32, device=dev))
+    enc_proj = (init_dense((cfg.d_model, cfg.d_model), None, cfg.dtype,
+                           generator=g) if cfg.vision_tokens else None)
+    tail = (tuple(init_layer(cfg, sp, g, cross=has_cross) for sp in cfg.tail)
+            if cfg.tail else None)
+    return ModelParams(
+        embed=embed, blocks=blocks, final_norm=_norm_init(cfg, dev),
+        unembed=(None if cfg.tie_embeddings else init_dense(
+            (cfg.d_model, vp), None, cfg.dtype, generator=g)),
+        encoder=encoder, enc_proj=enc_proj, tail=tail)
+
+
+def block(tree, b: int):
+    """Block ``b`` of a stacked per-slot tree (views, no copies)."""
+    return tree_map(lambda a: a[b], tree)
+
+
+def enc_kv(lp: LayerParams, enc: torch.Tensor | None):
+    """A decoder layer's cross-attention keys and values of the encoder
+    output ``enc`` (B, F, D); None without an encoder."""
+    if enc is None or lp.cross is None:
+        return None
+    return (torch.einsum("bsd,dhk->bshk", enc, lp.cross.wk.to(enc.dtype)),
+            torch.einsum("bsd,dhk->bshk", enc, lp.cross.wv.to(enc.dtype)))
+
+
+def _scan_blocks(params: ModelParams, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor,
+                 enc: torch.Tensor | None = None) -> torch.Tensor:
+    for b in range(cfg.num_blocks):
+        for s, spec in enumerate(cfg.pattern):
+            lp = block(params.blocks[s], b)
+            x, _ = apply_layer(lp, cfg, spec, x, positions,
+                               enc_kv=enc_kv(lp, enc))
+    if params.tail is not None:
+        for lp, spec in zip(params.tail, cfg.tail):
+            x, _ = apply_layer(lp, cfg, spec, x, positions,
+                               enc_kv=enc_kv(lp, enc))
+    return x
+
+
+def embed_tokens(params: ModelParams, cfg: ModelConfig,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    x = params.embed[tokens].to(cfg.dtype)
+    return x * scalar(x, cfg.d_model ** 0.5)
+
+
+def lm_logits(params: ModelParams, cfg: ModelConfig,
+              x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(params.final_norm, x, cfg.norm_eps, cfg.rms_offset)
+    vp = padded_vocab(cfg.vocab_size)
+    w = params.embed.T if params.unembed is None else params.unembed
+    logits = softcap(torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)),
+                     cfg.logit_softcap)
+    if vp != cfg.vocab_size:  # mask the padded slots exactly
+        valid = torch.arange(vp, device=x.device) < cfg.vocab_size
+        logits = torch.where(valid, logits, scalar(logits, -1e9))
+    return logits
+
+
+def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor,
+            extra_embeds: torch.Tensor | None = None,
+            encoder_out: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens (B, S) -> final hidden (B, S, D).  ``extra_embeds`` is the VLM
+    patch-embedding prefix (stubbed frontend)."""
+    x = embed_tokens(params, cfg, tokens)
+    if extra_embeds is not None:
+        pfx = extra_embeds.to(cfg.dtype)
+        if params.enc_proj is not None:
+            pfx = dense(params.enc_proj, pfx)
+        x = torch.cat([pfx, x], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    return _scan_blocks(params, cfg, x, positions, enc=encoder_out)
+
+
+def encode(params: ModelParams, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over stubbed conv-frontend frame embeddings (B,F,D);
+    its layers are non-causal."""
+    enc_blocks, enc_norm = params.encoder
+    x = frames.to(cfg.dtype)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    for i in range(cfg.encoder_layers):
+        lp = block(enc_blocks, i)
+        h = rms_norm(lp.norm1, x, cfg.norm_eps, cfg.rms_offset)
+        x = x + attn_lib.attention(lp.mixer, cfg, h, positions, window=None,
+                                   causal=False)
+        h = rms_norm(lp.norm2, x, cfg.norm_eps, cfg.rms_offset)
+        x = x + mlp(lp.ffn, h)
+    return rms_norm(enc_norm, x, cfg.norm_eps, cfg.rms_offset)

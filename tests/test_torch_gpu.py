@@ -2,7 +2,8 @@
 against their plain PyTorch versions on the card, the wrappers' input checks,
 the engine and the trainer running through the kernels, V-sharded serving
 through K3 (shards on one card, and across cards where there are two), and
-training over a one-rank NCCL group (spawned, never in the test's process).  Skipped without
+training over a one-rank NCCL group (spawned, never in the test's process),
+and the LM zoo's smoke architectures and serving launcher.  Skipped without
 a card.  This file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
@@ -871,3 +872,37 @@ def test_fold_in_launches_at_every_contract_case(dev):
         r = ref.fold_in_docs_ref(*args, **kw)
         torch.cuda.synchronize()
         assert k[0].sum() == r[0].sum(), name
+
+
+LM_ARCHS = ("recurrentgemma-2b", "qwen3-4b", "gemma2-27b", "qwen1.5-110b",
+            "gemma3-27b", "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b",
+            "mamba2-130m", "whisper-large-v3", "internvl2-2b")
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_lm_smoke_arch_on_cuda_matches_cpu(dev, name):
+    """chip_smoke's phase 19 for one architecture: float32 (TF32 off)
+    prefill and decode (a window-8 ring wrapping) on cuda:0 against the CPU
+    from the same weights and state, and, but for MoE, decode == prefill on
+    the card; 1e-4 of the logits' scale."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    row = chip_smoke.lm_arch_vs_cpu(name, dev)
+    assert row["finite"] and row["position"] == 12
+    for k in ("prefill_rel_err", "decode_rel_err",
+              "decode_vs_prefill_rel_err"):
+        assert row.get(k, 0.0) <= 1e-4, (k, row)
+    assert ("decode_vs_prefill_rel_err" in row) == ("moe" not in name)
+
+
+def test_lm_serve_launcher_on_cuda(dev):
+    """No --device means cuda:0."""
+    from repro_torch.launch import serve
+
+    out = serve.main(["--arch", "qwen3-4b", "--gen", "2"])
+    assert out["device"] == "cuda:0" and out["finite"]
+    assert out["position"] == 3

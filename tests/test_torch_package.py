@@ -219,3 +219,47 @@ def test_training_kernels_refuse_cpu_tensors():
                             torch.zeros((2, 4, 2)),
                             ell_live=torch.zeros(1, dtype=torch.int32),
                             alpha=0.1, beta=0.01, num_words_total=3)
+
+
+LM_MODULES = ("common", "attention", "moe", "recurrent", "transformer", "zoo",
+              "convert")
+LM_CONFIGS = ("archs", "recurrentgemma_2b", "qwen3_4b", "gemma2_27b",
+              "qwen15_110b", "gemma3_27b", "qwen3_moe_30b_a3b",
+              "qwen3_moe_235b_a22b", "mamba2_130m", "whisper_large_v3",
+              "internvl2_2b")
+
+
+def test_lm_zoo_modules_are_in_the_port():
+    """The serving slice of the LM zoo: models/* and configs/*, each a
+    module the import rules above cover."""
+    mods = set(_port_modules())
+    for m in LM_MODULES:
+        assert f"repro_torch.models.{m}" in mods, m
+    for m in LM_CONFIGS:
+        assert f"repro_torch.configs.{m}" in mods, m
+    assert "repro_torch.launch.serve" in mods
+
+
+def test_lm_serve_defaults_to_cuda(monkeypatch):
+    """launch/serve.py without --device means the card: without one it
+    raises; --device cpu runs the decode on the host."""
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "qwen3-4b", "--gen", "1"])
+    out = serve.main(["--arch", "qwen3-4b", "--gen", "2", "--device", "cpu"])
+    assert out["device"] == "cpu" and out["finite"] and out["position"] == 3
+
+
+def test_lm_init_defaults_to_cuda(monkeypatch):
+    """Decode states and caches made without a generator or device go to
+    cuda:0; without a card that raises."""
+    from repro_torch.configs.archs import smoke
+    from repro_torch.models import zoo
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        zoo.init_decode_state(smoke("qwen3-4b"), 1, 8)
+    st = zoo.init_decode_state(smoke("qwen3-4b"), 1, 8, device="cpu")
+    assert st.position.device == torch.device("cpu")
