@@ -136,6 +136,30 @@ einsums):
 21. ``repro_torch.launch.serve.main`` at the reference's defaults (smoke
     width, batch 8, 16 steps) on cuda:0 for qwen3-4b and mamba2-130m.
 
+The LM zoo's training path (``zoo.make_train_step`` -> ``loss_fn`` with
+autograd, blocks and CE chunks recomputed in the backward ->
+``optim/adamw.py``; no kernel of the port's own):
+
+22. every architecture at its ``smoke()`` width in float32 (TF32 off),
+    weights and a B = 2, S = 16 batch drawn on the CPU from a seed: two
+    ``train_step``s on cuda:0 and on the CPU from the same state and batch
+    (loss, grad norm and every tensor of the state compared after each);
+    then in bf16 two steps on the card on one batch;
+23. qwen3-4b training at full width, weights drawn on the card from a seed
+    (bf16 params, float32 AdamW master, m and v): batches of
+    ``data.loader.lm_batches(vocab, 1, 4096)`` through ``PrefetchLoader``
+    on cuda:0 (4 CE chunks; the chunked causal attention); 2 warm-up steps,
+    8 steps between CUDA events (ms a step, tokens/s, model FLOPs against
+    989 TFLOP/s: ``mfu``), 2 steps split into forward + backward and
+    optimizer (CUDA events), the last batch trained once more, one step
+    under ``torch.profiler`` (busy share, top kernels, the optimizer's
+    share); the state's bytes against the 64.4 GB reckoned, ``peak_bytes``;
+    everything freed after;
+24. ``repro_torch.launch.train.main(["--workload", "lm", ...])`` for 20
+    steps on cuda:0 (smoke width, B = 8, S = 128) for qwen3-4b and
+    mamba2-130m, ``examples/torch_train_lm.py`` for 60 steps and
+    ``examples/torch_serve_lm.py`` at its defaults on cuda:0.
+
 Bounds (fault F2: the kernels' prefix sums are float32 adds in another
 order than torch.cumsum's, so a draw on a float boundary may flip):
 
@@ -176,7 +200,17 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
   finite, the position advanced; qwen3-4b: 4,026,727,936 parameters, the
   float32 decode == prefill within 1e-3 of scale, bf16 within 0.1 of
   scale of float32, finite logits and the position advanced at every
-  batch; the launcher runs on cuda:0 with finite logits.
+  batch; the launcher runs on cuda:0 with finite logits;
+* LM training: every smoke arch's two float32 steps on the card within
+  1e-5 of the CPU's loss (relative), 1e-4 of its grad norm, and every
+  param, master, m and v within 2 lr_t + 1e-6 (summed over the steps; an
+  AdamW first step is g / (|g| + eps), so a float difference of a
+  gradient entry near 0 moves it by up to lr_t), step exact; bf16 finite
+  with the second loss below the first + 0.05; qwen3-4b: 4,026,727,936
+  parameters, every step's loss and grad norm finite, the last batch
+  trained again to a loss no more than 0.05 above; the launcher's losses
+  finite on cuda, the example's loss falling, the serving example on cuda
+  with finite logits.
 
 Fails (non-zero exit, no result line) without a CUDA card, outside a
 checkout of the repository, or when any phase fails.
@@ -227,6 +261,15 @@ QWEN_BATCHES, QWEN_STEPS, QWEN_PROFILED = (8, 32), 64, 4
 QWEN_PREFILL, QWEN_MAX = 1024, 2048
 QWEN_S, QWEN_PREFILL_CALLS = 4096, 3
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 (data sheet)
+
+# the LM zoo's training path (phases 22-24)
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 16, 2
+LM_LOSS_REL, LM_NORM_REL, LM_STATE_ATOL = 1e-5, 1e-4, 1e-6
+LM_TWO_STEP_RISE = 0.05        # the reference's own two-step check
+QWEN_TRAIN_B, QWEN_TRAIN_S = 1, 4096
+QWEN_TRAIN_WARM, QWEN_TRAIN_TIMED, QWEN_TRAIN_SPLIT = 2, 8, 2
+QWEN_STATE_RECKONED = 64.4e9   # bf16 params and grads, float32 master, m, v
+LM_EXAMPLE_STEPS = 60
 
 BATCH, BUCKETS, SWEEPS = 32, (32, 64, 128, 256), (8, 4)
 SERVE_DOCS, SWAP_DOCS = 256, 32
@@ -1311,6 +1354,328 @@ def lm_launcher_phase(card: str) -> None:
             raise AssertionError(f"launcher: {r}")
 
 
+def lr_at(step: int) -> float:
+    """AdamW's learning rate at ``step`` (1-based) under the default
+    config's linear warmup."""
+    from repro_torch.optim import adamw
+
+    cfg = adamw.AdamWConfig()
+    return cfg.lr * min(step / max(cfg.warmup_steps, 1), 1.0)
+
+
+def train_steps(cfg, params, batch: dict, dev, steps: int) -> list:
+    """``steps`` ``train_step``s on ``dev`` from a copy of ``params`` and a
+    fresh AdamW state on one batch: per step, (loss, grad norm, the state
+    flattened and copied to the CPU as float64)."""
+    import torch
+
+    from repro_torch.models import zoo
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.convert import flatten
+    from repro_torch.optim import adamw
+
+    params = tree_map(lambda a: a.detach().to(dev, copy=True), params)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    state = zoo.TrainState(params, adamw.init(params))
+    step = zoo.make_train_step(cfg)
+    out = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: a.detach().to("cpu", torch.float64, copy=True)
+                     for k, a in flatten(state).items()}))
+    return out
+
+
+def lm_train_vs_cpu(name: str, dev) -> dict:
+    """Phase 22 for one architecture at its smoke() width: float32 (TF32
+    off), weights and a batch drawn on the CPU from a seed, LM_TRAIN_STEPS
+    train steps on ``dev`` and on the CPU from the same state on the same
+    batch; then the bf16 config, two steps on ``dev`` on that batch."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs.archs import smoke
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg16 = smoke(name)
+    cfg = dataclasses.replace(cfg16, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(SEED)
+    params = tf.init_params(cfg, gen)
+    B, S = LM_TRAIN_B, LM_TRAIN_S
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn(B, cfg.encoder_frames, cfg.d_model,
+                                      generator=gen)
+    if cfg.vision_tokens:
+        batch["patches"] = torch.randn(B, cfg.vision_tokens, cfg.d_model,
+                                       generator=gen)
+    card = train_steps(cfg, params, batch, dev, LM_TRAIN_STEPS)
+    host = train_steps(cfg, params, batch, torch.device("cpu"),
+                       LM_TRAIN_STEPS)
+    loss_err = norm_err = 0.0
+    excess = -math.inf             # the largest state error over its bound
+    state_err = 0.0
+    steps_equal = True
+    for i, ((cl, cn, cs), (hl, hn, hs)) in enumerate(zip(card, host), 1):
+        loss_err = max(loss_err, abs(cl - hl) / abs(hl))
+        norm_err = max(norm_err, abs(cn - hn) / hn)
+        bound = sum(2 * lr_at(t) for t in range(1, i + 1)) + LM_STATE_ATOL
+        for k, a in cs.items():
+            if k == "opt.step":
+                steps_equal &= int(a) == int(hs[k]) == i
+                continue
+            e = float((a - hs[k]).abs().max())
+            state_err = max(state_err, e)
+            excess = max(excess, e - bound)
+    p16 = tf.init_params(cfg16, torch.Generator().manual_seed(SEED))
+    bf16 = train_steps(cfg16, p16, batch, dev, 2)
+    return dict(arch=name, loss=[c[0] for c in card],
+                loss_rel_err=loss_err, grad_norm_rel_err=norm_err,
+                state_max_abs_err=state_err, state_within_bound=excess <= 0,
+                steps_equal=steps_equal, bf16_losses=[b[0] for b in bf16],
+                finite=all(math.isfinite(c[0]) and math.isfinite(c[1])
+                           for c in card + bf16))
+
+
+def lm_train_archs_phase(card: str, dev="cuda:0") -> None:
+    """Phase 22: every architecture's train step, the card against the CPU
+    (``lm_train_vs_cpu``)."""
+    import torch
+
+    from repro_torch.configs.archs import ARCHS
+
+    t0 = time.perf_counter()
+    rows = [lm_train_vs_cpu(name, torch.device(dev)) for name in ARCHS]
+    emit("lm_train_archs", card=card, archs=rows,
+         seconds=time.perf_counter() - t0)
+    for r in rows:
+        if (r["loss_rel_err"] > LM_LOSS_REL or r["grad_norm_rel_err"] >
+                LM_NORM_REL or not r["state_within_bound"]
+                or not r["steps_equal"] or not r["finite"]
+                or not r["bf16_losses"][1] < r["bf16_losses"][0]
+                + LM_TWO_STEP_RISE):
+            raise AssertionError(f"{r['arch']} training: {r}")
+
+
+def qwen_train_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6 N T for the weights (the tied
+    head's product included, the embedding's gather counted as a product
+    too), plus the attention's score and PV products as executed (every
+    query chunk against all ``seq`` keys: the reference's recipe does not
+    skip masked blocks), forward and backward (3x the forward).  The
+    recomputation of the blocks and CE chunks in the backward is not
+    counted."""
+    attn_fwd = 4 * tokens * seq * cfg.num_heads * cfg.hd * cfg.num_layers
+    return 6 * n_params * tokens + 3 * attn_fwd
+
+
+def qwen_train_phase(card: str, dev="cuda:0") -> None:
+    """Phase 23: qwen3-4b training at full width on the card (see the
+    module docstring); everything is freed at the end."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs.archs import QWEN3_4B as cfg
+    from repro_torch.data.loader import PrefetchLoader, lm_batches
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import zoo
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw
+
+    dev = torch.device(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    state = zoo.TrainState(params, adamw.init(params))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = lambda tree: sum(a.numel() * a.element_size()  # noqa: E731
+                              for a in tree_leaves(tree))
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    param_bytes = nbytes(params)
+    opt_bytes = nbytes(state.opt)
+    B, S = QWEN_TRAIN_B, QWEN_TRAIN_S
+    step = zoo.make_train_step(cfg)
+    loader = PrefetchLoader(lm_batches(cfg.vocab_size, B, S, seed=SEED),
+                            device=dev)
+    losses, norms = [], []
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    try:
+        for _ in range(QWEN_TRAIN_WARM):
+            state, m = step(state, next(loader))
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        torch.cuda.synchronize()
+        a, b = ev(), ev()
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(QWEN_TRAIN_TIMED):
+            state, m = step(state, next(loader))
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        b.record()
+        b.synchronize()
+        wall_s = (time.perf_counter() - t0) / QWEN_TRAIN_TIMED
+        step_ms = a.elapsed_time(b) / QWEN_TRAIN_TIMED
+
+        # forward + backward and the optimizer apart
+        fb, opt = [], []
+        for _ in range(QWEN_TRAIN_SPLIT):
+            batch = next(loader)
+            e0, e1, e2 = ev(), ev(), ev()
+            e0.record()
+            loss, grads = zoo.loss_and_grads(state.params, cfg, batch)
+            e1.record()
+            _, _, gnorm = adamw.apply(adamw.AdamWConfig(), grads, state.opt,
+                                      state.params)
+            e2.record()
+            del grads
+            e2.synchronize()
+            fb.append(e0.elapsed_time(e1))
+            opt.append(e1.elapsed_time(e2))
+            losses.append(loss)
+            norms.append(gnorm)
+        # the last batch once more: the loss must not rise
+        before = float(loss)
+        state, m = step(state, batch)
+        again = float(m["loss"])
+        norms.append(m["grad_norm"])
+
+        # one step under the profiler, its optimizer labelled
+        batch = next(loader)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            with record_function("forward_backward"):
+                loss, grads = zoo.loss_and_grads(state.params, cfg, batch)
+            with record_function("optimizer"):
+                adamw.apply(adamw.AdamWConfig(), grads, state.opt,
+                            state.params)
+            del grads
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t1) * 1e3
+        losses.append(loss)
+        busy = device_busy(prof, prof_ms, steps=1)
+        busy["optimizer_device_ms"] = annotation_device_ms(prof, "optimizer")
+        if busy.get("device_busy_ms") and busy["optimizer_device_ms"]:
+            busy["optimizer_share"] = (busy["optimizer_device_ms"]
+                                       / busy["device_busy_ms"])
+    finally:
+        loader.close()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    tokens = B * S
+    flops = qwen_train_flops(cfg, n_params, tokens, S)
+    fb_ms, opt_ms = sum(fb) / len(fb), sum(opt) / len(opt)
+    emit("lm_train_qwen3_4b", card=card, arch=cfg.name,
+         layers=cfg.num_layers, d_model=cfg.d_model, heads=cfg.num_heads,
+         kv_heads=cfg.num_kv_heads, head_dim=cfg.hd, d_ff=cfg.d_ff,
+         vocab=cfg.vocab_size, params=n_params, batch=B, seq=S,
+         init_s=init_s, param_bytes=param_bytes, opt_bytes=opt_bytes,
+         grad_bytes=param_bytes,
+         state_and_grad_bytes=2 * param_bytes + opt_bytes,
+         reckoned_bytes=QWEN_STATE_RECKONED, peak_bytes=peak,
+         steps_timed=QWEN_TRAIN_TIMED, ms_per_step=step_ms,
+         wall_ms_per_step=wall_s * 1e3, tokens_per_s=tokens / step_ms * 1e3,
+         forward_backward_ms=fb_ms, optimizer_ms=opt_ms,
+         optimizer_share=opt_ms / (fb_ms + opt_ms),
+         model_flops=flops, recompute_excluded=True,
+         bound_ms=flops / BF16_FLOPS * 1e3,
+         mfu=flops / (step_ms / 1e3) / BF16_FLOPS,
+         losses=losses, grad_norms=norms, repeat_batch_loss=before,
+         repeat_loss=again, profile=busy)
+    del params, state, loss, m, batch
+    torch.cuda.empty_cache()
+    if n_params != QWEN_PARAMS:
+        raise AssertionError(f"qwen3-4b has {n_params} parameters")
+    if not all(math.isfinite(x) for x in losses + norms + [again]):
+        raise AssertionError(f"qwen3-4b training: non-finite {losses} {norms}")
+    if again > before + LM_TWO_STEP_RISE:
+        raise AssertionError(f"qwen3-4b: the last batch's loss rose from "
+                             f"{before} to {again}")
+
+
+def annotation_device_ms(prof, name: str) -> float | None:
+    """The device time a ``record_function(name)`` range spans on the card
+    (the profiler's device-side user annotation), or None when the trace
+    has none."""
+    from torch.autograd import DeviceType
+
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.name == name and e.device_type == DeviceType.CUDA]
+    return sum(spans) / 1e3 if spans else None
+
+
+def lm_train_launcher_phase(card: str) -> None:
+    """Phase 24: ``launch.train --workload lm`` on cuda:0 for qwen3-4b and
+    mamba2-130m (20 steps at smoke width), then the LM examples on cuda:0:
+    ``torch_train_lm.py`` for LM_EXAMPLE_STEPS steps and
+    ``torch_serve_lm.py`` at its defaults."""
+    import contextlib
+    import io
+    import math
+
+    from repro_torch.launch import train
+
+    runs = []
+    for arch in ("qwen3-4b", "mamba2-130m"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(["--workload", "lm", "--arch", arch, "--iters",
+                             "20"])
+        out = buf.getvalue()
+        losses = [float(ln.split("loss ")[1]) for ln in out.splitlines()
+                  if ln.startswith("step ")]
+        done = [ln for ln in out.splitlines() if ln.startswith("[done]")]
+        runs.append(dict(arch=arch, rc=rc, losses=losses,
+                         done=done[-1] if done else None,
+                         wall_s=time.perf_counter() - t0))
+    sys.path.insert(0, str(ROOT / "examples"))
+    import torch_serve_lm
+    import torch_train_lm
+
+    t0 = time.perf_counter()
+    ex = torch_train_lm.main(["--steps", str(LM_EXAMPLE_STEPS)])
+    ex_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = torch_serve_lm.main([])
+    serve_s = time.perf_counter() - t0
+    first, last = sum(ex[:5]) / 5, sum(ex[-5:]) / 5
+    emit("lm_train_launcher", card=card, runs=runs,
+         example=dict(steps=len(ex), seconds=ex_s, first5_loss=first,
+                      last5_loss=last, losses=ex),
+         serve_example=dict(seconds=serve_s, device=served["device"],
+                            position=served["position"],
+                            finite=served["finite"],
+                            decode_tokens_per_s=served[
+                                "decode_tokens_per_s"]))
+    for r in runs:
+        if (r["rc"] != 0 or len(r["losses"]) != 2
+                or not all(math.isfinite(x) for x in r["losses"])
+                or not r["done"] or " on cuda" not in r["done"]):
+            raise AssertionError(f"launcher --workload lm: {r}")
+    if not (all(math.isfinite(x) for x in ex) and last < first):
+        raise AssertionError(f"the training example's loss did not fall: "
+                             f"{first} -> {last}")
+    if not (served["device"].startswith("cuda") and served["finite"]
+            and served["position"] == 64):
+        raise AssertionError(f"the serving example: {served}")
+
+
 def train_phases(card: str, scale: float, iters: int,
                  device="cuda:0") -> list[dict]:
     """Phases 7-14; returns the kernels-line rows of K1, K2 and K4."""
@@ -1907,6 +2272,11 @@ def main() -> int:
     lm_archs_phase(card)
     qwen_phase(card)
     lm_launcher_phase(card)
+
+    # -- 22-24. the LM zoo's training path -----------------------------------
+    lm_train_archs_phase(card)
+    qwen_train_phase(card)
+    lm_train_launcher_phase(card)
     print(json.dumps({"kernels": [k3_row] + train_rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(card, flush=True)

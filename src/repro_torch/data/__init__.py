@@ -1,1 +1,2 @@
-"""Synthetic corpora (numpy, host side)."""
+"""Host data: synthetic corpora (numpy) and the LM training path's
+prefetching loader."""

@@ -1,5 +1,6 @@
 """Training launcher: CGS-LDA on one device or over a mesh
-(``--workload lda``).
+(``--workload lda``), and transformer pretraining on one device
+(``--workload lm --arch <id>``).
 
 The port of ``repro.launch.train``:
 
@@ -21,8 +22,12 @@ Over several devices (one process per rank):
 * ``--mode 2d`` lays the ranks out as a (data, model) mesh; on one device
   it trains without a mesh, as the reference does.
 
-Transformer pretraining (``--workload lm``) comes with slice 4 and exits
-non-zero.
+``--workload lm --arch <id>`` trains the architecture's ``smoke()``
+config (the reference trains the full config only on 16 or more devices)
+from seeded random weights on synthetic batches (B = 8, S = 128) drawn on
+the device each step, printing the loss every 10 steps.  It runs on one
+device: with ``--host-devices`` or ``--distributed`` (the LM zoo's mesh
+half, ROADMAP item 13, not ported) it is refused with a non-zero exit.
 """
 from __future__ import annotations
 
@@ -30,10 +35,11 @@ import argparse
 import math
 import sys
 
-NOT_PORTED = {
-    "workload": ("--workload lm (transformer pretraining) is not ported: it "
-                 "comes with slice 4 of the port"),
-}
+LM_BATCH, LM_SEQ, LM_SEED = 8, 128, 0
+LM_MESH_REFUSED = ("--workload lm trains on one device: --host-devices and "
+                   "--distributed need the LM zoo's mesh half (tensor- and "
+                   "expert-parallel layers), ROADMAP item 13, which is not "
+                   "ported")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -77,10 +83,62 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def refused(args) -> str | None:
-    """The message for a flag this slice does not bring, else None."""
-    if args.workload != "lda":
-        return NOT_PORTED["workload"]
+    """The message for a flag combination the port does not run, else
+    None."""
+    if args.workload == "lm" and (args.host_devices or args.distributed):
+        return LM_MESH_REFUSED
+    if args.workload == "lm" and not args.arch:
+        return "--arch is required for --workload lm"
     return None
+
+
+def run_lm(args) -> int:
+    """Train ``smoke(args.arch)`` for ``args.iters`` steps on one device
+    (``cuda:0`` unless ``--device`` says otherwise)."""
+    import time
+
+    import torch
+
+    from repro_torch.configs.archs import smoke
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import zoo
+    from repro_torch.optim import adamw
+
+    dev = resolve_device(args.device)
+    cfg = smoke(args.arch)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        LM_SEED))
+    state = zoo.TrainState(params, adamw.init(params))
+    step = zoo.make_train_step(cfg)
+    # one generator per modality: drawing tokens, frames and patches from
+    # one stream would correlate the three synthetic inputs
+    g_tok, g_frames, g_patch = (
+        torch.Generator(device=dev).manual_seed(LM_SEED * 3 + 1 + k)
+        for k in range(3))
+    B, S = LM_BATCH, LM_SEQ
+    m = {"loss": float("nan")}
+    t0 = time.perf_counter()
+    for i in range(args.iters):
+        toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g_tok,
+                             device=dev)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if cfg.encoder_layers:
+            batch["frames"] = torch.randn(
+                (B, cfg.encoder_frames, cfg.d_model), generator=g_frames,
+                dtype=torch.bfloat16, device=dev)
+        if cfg.vision_tokens:
+            batch["patches"] = torch.randn(
+                (B, cfg.vision_tokens, cfg.d_model), generator=g_patch,
+                dtype=torch.bfloat16, device=dev)
+        state, m = step(state, batch)
+        if (i + 1) % 10 == 0:
+            print(f"step {i + 1}: loss {float(m['loss']):.4f}", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"[done] {cfg.name} on {dev}: {args.iters} steps of B = {B}, "
+          f"S = {S}, final loss {float(m['loss']):.4f}, "
+          f"{args.iters * B * S / max(wall, 1e-9):.0f} tokens/s", flush=True)
+    return 0
 
 
 def run_lda(args) -> int:
@@ -145,6 +203,8 @@ def main(argv=None) -> int:
     if msg:
         print(f"[train] {msg}", file=sys.stderr)
         return 2
+    if args.workload == "lm":
+        return run_lm(args)
     if args.host_devices:
         from repro_torch.device import resolve_device
         from repro_torch.distributed import launch

@@ -1,5 +1,5 @@
-"""The LM zoo's serving path: the ten architectures of ``configs/archs.py``
-(dense, MoE, hybrid RG-LRU, Mamba2 SSD, enc-dec, VLM), prefill and decode.
+"""The LM zoo: the ten architectures of ``configs/archs.py`` (dense, MoE,
+hybrid RG-LRU, Mamba2 SSD, enc-dec, VLM), training, prefill and decode.
 
 Plain functions on ``NamedTuple`` parameter structures, as in
 ``repro.models``: each pattern slot's layers are stacked ``(num_blocks,

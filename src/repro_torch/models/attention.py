@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from .common import ModelConfig, init_dense, rms_norm, rope
+from .common import ModelConfig, init_dense, remat, rms_norm, rope
 
 NEG_INF = -2.0e38
 Q_CHUNK = 1024  # query-block size for chunked attention
@@ -120,7 +120,10 @@ def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
 
     Past 2 * Q_CHUNK tokens the S x S score matrix is never built: queries
     go in Q_CHUNK blocks, and a sliding-window layer slices K/V to the
-    (window + chunk) region each block can see."""
+    (window + chunk) region each block can see.  Under autograd each
+    block's scores are recomputed in the backward (the reference's
+    per-chunk ``jax.checkpoint``), so no layer keeps its S x S float32
+    scores."""
     q, k, v = _project_qkv(p, cfg, x, positions)
     S = x.shape[1]
     if not causal or S <= 2 * Q_CHUNK:
@@ -153,7 +156,7 @@ def _chunked_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = k_abs <= q_abs
         if window is not None:
             m &= k_abs > q_abs - window
-        outs.append(_sdpa(q[:, qs:qs + Q_CHUNK], k[:, ks:ks + Lk],
+        outs.append(remat(_sdpa, q[:, qs:qs + Q_CHUNK], k[:, ks:ks + Lk],
                           v[:, ks:ks + Lk], m[None], cfg))
     return torch.cat(outs, dim=1)
 
@@ -184,7 +187,8 @@ def decode_attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
 def cross_attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
                     enc_kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
     """Decoder -> encoder cross attention (whisper); ``enc_kv`` precomputed.
-    Long decoder sequences are q-chunked."""
+    Long decoder sequences are q-chunked, each chunk recomputed in the
+    backward under autograd."""
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
     if p.q_norm is not None:
         q = rms_norm(p.q_norm, q, cfg.norm_eps, False)
@@ -193,7 +197,7 @@ def cross_attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     if Sq <= 2 * Q_CHUNK:
         out = _sdpa(q, k, v, None, cfg)
     else:
-        out = torch.cat([_sdpa(q[:, s:s + Q_CHUNK], k, v, None, cfg)
+        out = torch.cat([remat(_sdpa, q[:, s:s + Q_CHUNK], k, v, None, cfg)
                          for s in range(0, Sq, Q_CHUNK)], dim=1)
     return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
 

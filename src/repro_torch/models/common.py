@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +150,34 @@ def tree_map(fn, tree, *rest):
         return fn(tree, *rest)
     out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
     return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree of NamedTuples and tuples in field order
+    (``None`` leaves skipped), as ``jax.tree.leaves`` orders them."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for sub in tree for t in tree_leaves(sub)]
+
+
+def tree_unstack(tree, n: int) -> list:
+    """The ``n`` per-block views of a stacked tree, from one ``unbind(0)``
+    per leaf: its backward is one ``stack`` a leaf, where indexing block by
+    block (``a[b]``) would build a zero gradient of the whole stacked leaf
+    for every block."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda _, p, b=b: p[b], tree, parts) for b in range(n)]
+
+
+def remat(fn, *args):
+    """``fn(*args)``, recomputed in the backward instead of keeping its
+    activations when autograd is recording (the reference's
+    ``jax.checkpoint``); a plain call otherwise (prefill, decode)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def tree_stack(trees):

@@ -1,11 +1,12 @@
-"""Weights and decode states across the package boundary, as numpy.
+"""Weights, train states and decode states across the package boundary,
+as numpy.
 
 The reference's pytrees reach the port as flat ``dict[str, np.ndarray]``s
 keyed by their dotted paths (``blocks.0.mixer.wq``, ``tail.1.mixer.conv_w``,
-``layer_states.0.pos``; ``None`` leaves have no key), as
-``jax.tree_util.tree_flatten_with_path`` names them.  The port never sees a
-JAX type.  ``flatten`` gives the port's trees the same keys, so two trees
-compare key by key.
+``layer_states.0.pos``, ``opt.master.embed``; ``None`` leaves have no key),
+as ``jax.tree_util.tree_flatten_with_path`` names them.  The port never
+sees a JAX type.  ``flatten`` gives the port's trees the same keys, so two
+trees compare key by key.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..optim import adamw
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import recurrent as rec_lib
@@ -111,6 +113,25 @@ def decode_state_from_numpy(cfg: ModelConfig, arrays: dict,
                       zip(cfg.tail, _seq(t["tail_states"], len(cfg.tail))))
     return zoo.DecodeState(layer_states=states, position=t["position"],
                            cross_kv=cross_kv, tail_states=tails)
+
+
+def train_state_from_numpy(cfg: ModelConfig, arrays: dict,
+                           device=None) -> zoo.TrainState:
+    """``zoo.TrainState`` from the reference's flattened train state
+    (``params.*``, ``opt.master.*``, ``opt.m.*``, ``opt.v.*``,
+    ``opt.step``), on ``device`` (``cuda:0`` by default)."""
+    dev = resolve_device(device)
+
+    def tree(prefix: str) -> tf.ModelParams:
+        n = len(prefix)
+        return params_from_numpy(cfg, {k[n:]: a for k, a in arrays.items()
+                                       if k.startswith(prefix)}, dev)
+
+    return zoo.TrainState(
+        params=tree("params."),
+        opt=adamw.OptState(master=tree("opt.master."), m=tree("opt.m."),
+                           v=tree("opt.v."),
+                           step=to_tensor(arrays["opt.step"], dev)))
 
 
 def flatten(tree, prefix: str = "") -> dict:

@@ -5,9 +5,12 @@ The port of ``repro.models.transformer``, as plain functions on
 repetition of ``cfg.pattern``, and each pattern slot's parameters are
 stacked with a leading ``(num_blocks,)`` axis, exactly as the reference
 stacks them for its ``lax.scan``, so its weights map onto these key for key
-(``convert.py``).  ``_scan_blocks`` is a Python loop over the blocks; it
-needs no remat, since nothing here runs a backward.  ``tail`` holds the
-layers outside the pattern (recurrentgemma's trailing ``(R, R)``).  The
+(``convert.py``).  ``_scan_blocks`` is a Python loop over the blocks'
+views (one ``unbind`` a leaf).  Under autograd (training) each block, and
+each encoder layer, is recomputed in the backward instead of keeping its
+activations, as the reference remats its scan bodies; prefill and decode
+record no graph and run the blocks plainly.  ``tail`` holds the layers
+outside the pattern (recurrentgemma's trailing ``(R, R)``).  The
 enc-dec (whisper) and VLM (internvl2) models wrap the same decoder with
 stubbed frontends: precomputed frame or patch embeddings come in with the
 batch.
@@ -23,7 +26,8 @@ from . import attention as attn_lib
 from . import moe as moe_lib
 from . import recurrent as rec_lib
 from .common import (LayerSpec, ModelConfig, dense, init_dense, padded_vocab,
-                     rms_norm, scalar, softcap, tree_map, tree_stack)
+                     remat, rms_norm, scalar, softcap, tree_map, tree_stack,
+                     tree_unstack)
 
 
 class MLPParams(NamedTuple):
@@ -168,14 +172,22 @@ def enc_kv(lp: LayerParams, enc: torch.Tensor | None):
             torch.einsum("bsd,dhk->bshk", enc, lp.cross.wv.to(enc.dtype)))
 
 
+def _block_body(x: torch.Tensor, slot_params: tuple, cfg: ModelConfig,
+                positions: torch.Tensor,
+                enc: torch.Tensor | None) -> torch.Tensor:
+    """One repetition of ``cfg.pattern``: each slot's layer in turn."""
+    for lp, spec in zip(slot_params, cfg.pattern):
+        x, _ = apply_layer(lp, cfg, spec, x, positions,
+                           enc_kv=enc_kv(lp, enc))
+    return x
+
+
 def _scan_blocks(params: ModelParams, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor,
                  enc: torch.Tensor | None = None) -> torch.Tensor:
-    for b in range(cfg.num_blocks):
-        for s, spec in enumerate(cfg.pattern):
-            lp = block(params.blocks[s], b)
-            x, _ = apply_layer(lp, cfg, spec, x, positions,
-                               enc_kv=enc_kv(lp, enc))
+    slots = [tree_unstack(p, cfg.num_blocks) for p in params.blocks]
+    for slot_params in zip(*slots):
+        x = remat(_block_body, x, slot_params, cfg, positions, enc)
     if params.tail is not None:
         for lp, spec in zip(params.tail, cfg.tail):
             x, _ = apply_layer(lp, cfg, spec, x, positions,
@@ -228,11 +240,15 @@ def encode(params: ModelParams, cfg: ModelConfig,
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    for i in range(cfg.encoder_layers):
-        lp = block(enc_blocks, i)
-        h = rms_norm(lp.norm1, x, cfg.norm_eps, cfg.rms_offset)
-        x = x + attn_lib.attention(lp.mixer, cfg, h, positions, window=None,
-                                   causal=False)
-        h = rms_norm(lp.norm2, x, cfg.norm_eps, cfg.rms_offset)
-        x = x + mlp(lp.ffn, h)
+    for lp in tree_unstack(enc_blocks, cfg.encoder_layers):
+        x = remat(_encoder_layer, x, lp, cfg, positions)
     return rms_norm(enc_norm, x, cfg.norm_eps, cfg.rms_offset)
+
+
+def _encoder_layer(x: torch.Tensor, lp: LayerParams, cfg: ModelConfig,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(lp.norm1, x, cfg.norm_eps, cfg.rms_offset)
+    x = x + attn_lib.attention(lp.mixer, cfg, h, positions, window=None,
+                               causal=False)
+    h = rms_norm(lp.norm2, x, cfg.norm_eps, cfg.rms_offset)
+    return x + mlp(lp.ffn, h)

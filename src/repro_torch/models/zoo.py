@@ -1,14 +1,18 @@
-"""Serving steps for every architecture of ``configs/archs.py``: prefill
-and decode.
+"""Step functions for every architecture of ``configs/archs.py``: train,
+prefill and decode.
 
-The port of ``repro.models.zoo``'s serving half.  ``decode_step`` runs one
-token against per-layer mixer states (ring KV caches for local layers,
-recurrent states for rglru/ssd, a full cache for global attention); every
-stream of the batch shares one position, as in the reference.  The state's
-tensors are updated in place (the reference donates them to its jitted
-step) and the returned ``DecodeState`` holds them with the position
-advanced.  The training half (``loss_fn``, ``make_train_step``) and the
-mesh's ``decode_state_specs`` are not ported yet.
+The port of ``repro.models.zoo``.  ``train_step`` is next-token cross
+entropy (``loss_fn``, evaluated in ``LOSS_SEQ_CHUNK``-token chunks, each
+recomputed in the backward) through autograd, then an AdamW update
+(``optim/adamw.py``); params are leaf tensors that require grad, updated
+in place with the optimizer's state.  ``decode_step`` runs one token
+against per-layer mixer states (ring KV caches for local layers,
+recurrent states for rglru/ssd, a full cache for global attention);
+every stream of the batch shares one position, as in the reference.  The
+state's tensors are updated in place (the reference donates them to its
+jitted step) and the returned ``DecodeState`` holds them with the
+position advanced.  The mesh's ``decode_state_specs`` is not ported (it
+is a GSPMD partition spec).
 """
 from __future__ import annotations
 
@@ -17,10 +21,122 @@ from typing import Any, NamedTuple
 import torch
 
 from ..device import resolve_device
+from ..optim import adamw
 from . import attention as attn_lib
 from . import recurrent as rec_lib
 from . import transformer as tf
-from .common import LayerSpec, ModelConfig, tree_stack
+from .common import (LayerSpec, ModelConfig, remat, tree_leaves, tree_map,
+                     tree_stack)
+
+LOSS_SEQ_CHUNK = 1024  # CE evaluated in seq chunks to bound logits memory
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(params: tf.ModelParams, cfg: ModelConfig, h: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Per-token CE of one chunk.  The reference extracts the gold logit
+    with a one-hot contraction for GSPMD's vocab sharding; on one device a
+    gather gives the same value bit for bit (every other term of the
+    one-hot sum is an exact 0) and the same gradient, without a (B, C, V)
+    float32 one-hot."""
+    logits = tf.lm_logits(params, cfg, h).float()
+    m = logits.max(dim=-1, keepdim=True).values.detach()
+    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return logz - gold
+
+
+def loss_fn(params: tf.ModelParams, cfg: ModelConfig,
+            batch: dict) -> torch.Tensor:
+    """Mean next-token cross entropy.  batch: dict(tokens, labels[, frames,
+    patches])."""
+    enc = None
+    if cfg.encoder_layers:
+        enc = tf.encode(params, cfg, batch["frames"])
+    patches = batch.get("patches")
+    h = tf.forward(params, cfg, batch["tokens"], extra_embeds=patches,
+                   encoder_out=enc)
+    labels = batch["labels"]
+    if patches is not None:
+        h = h[:, patches.shape[1]:]     # loss on text positions only
+    S = h.shape[1]
+    C = min(LOSS_SEQ_CHUNK, S)
+    if S % C:
+        C = S
+    per_chunk = [remat(_ce_chunk, params, cfg, h[:, i:i + C],
+                       labels[:, i:i + C]) for i in range(0, S, C)]
+    return torch.stack(per_chunk).mean()
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: adamw.OptState
+
+
+def loss_and_grads(params: tf.ModelParams, cfg: ModelConfig, batch: dict,
+                   micro_batches: int = 1):
+    """(mean loss, grads as a tree like ``params``).  ``micro_batches`` > 1
+    splits the batch's leading axis into that many micro-batches and sums
+    their gradients in float32, then divides by the count (the reference's
+    gradient-accumulation scan).  Marks the params' leaves as requiring
+    grad."""
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+
+    def one(b):
+        loss = loss_fn(params, cfg, b)
+        return loss.detach(), torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True)
+
+    if micro_batches == 1:
+        loss, flat = one(batch)
+    else:
+        u = micro_batches
+        flat = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for p in leaves]
+        loss = 0.0
+        for i in range(u):
+            micro = {k: v.reshape(u, v.shape[0] // u, *v.shape[1:])[i]
+                     for k, v in batch.items() if v is not None}
+            l_i, g_i = one(micro)
+            for acc, g in zip(flat, g_i):
+                acc.add_(g)
+            loss = loss + l_i
+        for acc in flat:
+            acc.div_(u)
+        loss = loss / u
+    it = iter(flat)
+    return loss, tree_map(lambda _: next(it), params)
+
+
+def make_train_step(cfg: ModelConfig,
+                    opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+                    micro_batches: int = 1):
+    """``train_step(state, batch) -> (state, {"loss", "grad_norm"})``: one
+    forward and backward (``loss_and_grads``), then ``adamw.apply``.  The
+    state's tensors are updated in place; the returned ``TrainState`` holds
+    them."""
+
+    def train_step(state: TrainState, batch: dict):
+        loss, grads = loss_and_grads(state.params, cfg, batch, micro_batches)
+        params, opt, gnorm = adamw.apply(opt_cfg, grads, state.opt,
+                                         state.params)
+        return TrainState(params, opt), {"loss": loss, "grad_norm": gnorm}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
 
 
 class DecodeState(NamedTuple):

@@ -1,6 +1,6 @@
 """The port's PubMed configuration against the reference's, and the port's
-four examples (examples/torch_*.py) run in process on the CPU at tiny
-sizes."""
+examples (examples/torch_*.py: four of LDA, two of the LM zoo) run in
+process on the CPU at tiny sizes."""
 import dataclasses
 import importlib
 import pathlib
@@ -90,3 +90,23 @@ def test_multi_device_example_on_two_gloo_ranks(example, capsys):
     for key in ("one", "1d", "2d"):
         assert np.isfinite(rows[key]["ll"]) and rows[key]["ms_per_iter"] > 0
     assert "speedup vs 1 device" in capsys.readouterr().out
+
+
+def test_train_lm_example_loss_falls(example, capsys):
+    """The LM training example at a tiny width on the CPU: 30 steps on the
+    bigram stream, the loss of the last five below the first five's."""
+    losses = example("torch_train_lm").main(
+        ["--device", "cpu", "--steps", "30", "--d-model", "64", "--layers",
+         "2", "--vocab", "512", "--seq", "32", "--batch", "4"])
+    assert len(losses) == 30 and all(np.isfinite(losses))
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.5
+    assert "model: qwen3-100m" in capsys.readouterr().out
+
+
+def test_serve_lm_example_decodes(example, capsys):
+    out = example("torch_serve_lm").main(
+        ["--device", "cpu", "--requests", "2", "--prompt-len", "8", "--gen",
+         "6", "--arch", "qwen3-4b"])
+    assert out["device"] == "cpu" and out["finite"]
+    assert out["position"] == 14 and tuple(out["ids"].shape) == (2, 6)
+    assert "decode:" in capsys.readouterr().out

@@ -3,7 +3,8 @@ against their plain PyTorch versions on the card, the wrappers' input checks,
 the engine and the trainer running through the kernels, V-sharded serving
 through K3 (shards on one card, and across cards where there are two), and
 training over a one-rank NCCL group (spawned, never in the test's process),
-and the LM zoo's smoke architectures and serving launcher.  Skipped without
+and the LM zoo's smoke architectures (serving and training), its serving
+and training launchers and the prefetching loader.  Skipped without
 a card.  This file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
@@ -906,3 +907,50 @@ def test_lm_serve_launcher_on_cuda(dev):
     out = serve.main(["--arch", "qwen3-4b", "--gen", "2"])
     assert out["device"] == "cuda:0" and out["finite"]
     assert out["position"] == 3
+
+
+@pytest.mark.parametrize("name", LM_ARCHS)
+def test_lm_train_step_on_cuda_matches_cpu(dev, name):
+    """chip_smoke's phase 22 for one architecture: two float32 (TF32 off)
+    train steps on cuda:0 against the CPU from the same weights on the same
+    batch (loss 1e-5 and grad norm 1e-4 relative, every tensor of the state
+    within 2 lr_t + 1e-6 summed over the steps), and two bf16 steps on the
+    card, finite, the second loss below the first + 0.05."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    row = chip_smoke.lm_train_vs_cpu(name, dev)
+    assert row["finite"] and row["steps_equal"] and row["state_within_bound"]
+    assert row["loss_rel_err"] <= 1e-5 and row["grad_norm_rel_err"] <= 1e-4
+    assert row["bf16_losses"][1] < row["bf16_losses"][0] + 0.05
+
+
+def test_prefetch_loader_lands_on_cuda(dev):
+    """No device means cuda:0: the batches arrive there in order, equal to
+    the host's."""
+    from repro_torch.data.loader import PrefetchLoader, lm_batches
+
+    make = lm_batches(1000, 2, 64, seed=2)
+    ld = PrefetchLoader(make)
+    try:
+        got = [next(ld) for _ in range(4)]
+    finally:
+        ld.close()
+    assert ld.device == torch.device("cuda:0")
+    for i, b in enumerate(got):
+        for k, v in make(i).items():
+            assert b[k].device == torch.device("cuda:0")
+            np.testing.assert_array_equal(b[k].cpu().numpy(), v)
+
+
+def test_lm_train_launcher_on_cuda(dev, capsys):
+    """--workload lm without --device trains on cuda:0."""
+    from repro_torch.launch import train
+
+    assert train.main(["--workload", "lm", "--arch", "qwen3-4b", "--iters",
+                       "10"]) == 0
+    out = capsys.readouterr().out
+    assert "step 10: loss" in out and "on cuda:0" in out

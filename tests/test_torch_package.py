@@ -263,3 +263,31 @@ def test_lm_init_defaults_to_cuda(monkeypatch):
         zoo.init_decode_state(smoke("qwen3-4b"), 1, 8)
     st = zoo.init_decode_state(smoke("qwen3-4b"), 1, 8, device="cpu")
     assert st.position.device == torch.device("cpu")
+
+
+def test_lm_training_modules_are_in_the_port():
+    """The training slice of the LM zoo: the optimizer and the loader are
+    modules of the port, each covered by the import rules above, and the
+    zoo has its training half."""
+    from repro_torch.models import zoo
+
+    mods = set(_port_modules())
+    assert {"repro_torch.optim.adamw", "repro_torch.data.loader"} <= mods
+    for name in ("loss_fn", "loss_and_grads", "make_train_step",
+                 "TrainState", "LOSS_SEQ_CHUNK"):
+        assert hasattr(zoo, name), name
+
+
+def test_lm_training_defaults_to_cuda(monkeypatch):
+    """``--workload lm`` and ``PrefetchLoader`` without a device mean the
+    card: without one they raise; ``--device cpu`` trains on the host."""
+    from repro_torch.data.loader import PrefetchLoader, lm_batches
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    flags = ["--workload", "lm", "--arch", "mamba2-130m", "--iters", "1"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(flags)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PrefetchLoader(lm_batches(16, 1, 4))
+    assert train.main(flags + ["--device", "cpu"]) == 0

@@ -512,15 +512,19 @@ def test_nytimes_config_matches_jax():
                                   tny.scaled(0.0005).word_ids)
 
 
-@pytest.mark.parametrize("flags,slice_no", [
-    (["--workload", "lm"], "slice 4"), (["--mode", "2d"], None),
+@pytest.mark.parametrize("flags,refusal", [
+    (["--workload", "lm", "--host-devices", "2"], "item 13"),
+    (["--workload", "lm", "--arch", "qwen3-4b"], None),
+    (["--mode", "2d"], None),
     (["--host-devices", "2", "--mode", "2d", "--compressed-sync"], None),
     (["--distributed"], None)])
-def test_launch_train_refuses_mesh_flags(flags, slice_no, tmp_path, capfd):
-    """--workload lm is refused; the mesh flags train: --mode 2d alone on
-    one device (as the reference does), --host-devices as spawned gloo
-    ranks, --distributed from a 1-rank torchrun environment with a file
-    store (in a process of its own: no process group in the test's)."""
+def test_launch_train_refuses_mesh_flags(flags, refusal, tmp_path, capfd):
+    """--workload lm trains on one device and is refused over a mesh
+    (ROADMAP item 13, the LM zoo's mesh half); the LDA mesh flags train:
+    --mode 2d alone on one device (as the reference does), --host-devices
+    as spawned gloo ranks, --distributed from a 1-rank torchrun environment
+    with a file store (in a process of its own: no process group in the
+    test's)."""
     import subprocess
     import sys
 
@@ -528,9 +532,16 @@ def test_launch_train_refuses_mesh_flags(flags, slice_no, tmp_path, capfd):
 
     tiny = ["--device", "cpu", "--iters", "2", "--topics", "8", "--scale",
             "0.0001", "--ckpt-dir", str(tmp_path / "c"), "--ckpt-every", "1"]
-    if slice_no:
+    if refusal:
         assert train.main(flags + ["--device", "cpu"]) != 0
-        assert slice_no in capfd.readouterr().err
+        assert refusal in capfd.readouterr().err
+        return
+    if "lm" in flags:
+        assert train.main(flags + ["--device", "cpu", "--iters", "2"]) == 0
+        out = capfd.readouterr().out
+        assert "[done] qwen3-4b-smoke on cpu: 2 steps" in out
+        loss = float(out.split("final loss ")[1].split(",")[0])
+        assert np.isfinite(loss) and loss > 0.5
         return
     if flags == ["--distributed"]:
         env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
