@@ -160,6 +160,34 @@ autograd, blocks and CE chunks recomputed in the backward ->
     mamba2-130m, ``examples/torch_train_lm.py`` for 60 steps and
     ``examples/torch_serve_lm.py`` at its defaults on cuda:0.
 
+The LM zoo's training over a ("data", "model") mesh (``ShardingPolicy``
+from ``launch/specs.make_policy``, tensor parallelism and ZeRO-3 through
+``models/parallel.py``; no kernel of the port's own):
+
+25. one NCCL rank met through a ``file://`` store, a (1, 1) mesh: every
+    non-MoE architecture at its ``smoke()`` width in float32 (TF32 off),
+    two mesh ``train_step``s (state sharded, gathered back after each)
+    against two one-device steps on the card from the same weights and
+    batch; then qwen3-4b at full width (bf16 params, float32 AdamW),
+    B = 1, S = 4096 on ``lm_batches`` (phase 23's stream), 4 mesh steps:
+    ms a step (CUDA events over the last 3), tokens/s, ``mfu``, peak
+    bytes, the losses beside phase 23's first four.  With four cards or
+    more (``lm_mesh_four``; ``python3 kernel_probe.py --lm-mesh-four``
+    runs phases 23 and 25 alone, then a planted fault), 4 spawned NCCL
+    ranks train qwen3-4b at full width on a (1, 4) mesh
+    (``launch/mesh.make_production_mesh(4)``) at B = 1 and B = 4 and a
+    (2, 2) mesh (the launcher's ``training_mesh``) at B = 2: per
+    configuration ms a step, tokens/s,
+    ``mfu`` over 4 x 989 TFLOP/s, each card's peak bytes beside 64.4 GB /
+    4, the losses, and one profiled step's busy share and NCCL time.
+
+Model FLOPs (``mfu``): phases 23 and 25 count ``qwen_train_flops``: 6 N T
+over the 4,026,727,936 parameter tensors (norms included) plus the
+attention's score and PV products as executed (every key of each query
+chunk).  Phase 25 also gives ``mfu_reference_count``, the reference's
+count (``launch/roofline.step_flops``: 4,026,531,840 parameters, no norm
+weights, and the causal half of the attention).
+
 Bounds (fault F2: the kernels' prefix sums are float32 adds in another
 order than torch.cumsum's, so a draw on a float boundary may flip):
 
@@ -210,7 +238,15 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
   parameters, every step's loss and grad norm finite, the last batch
   trained again to a loss no more than 0.05 above; the launcher's losses
   finite on cuda, the example's loss falling, the serving example on cuda
-  with finite logits.
+  with finite logits;
+* LM training over a mesh: every smoke arch's two mesh steps within the
+  same bounds of the one-device steps on the card; qwen3-4b's mesh losses
+  finite and within 1e-5 relative of phase 23's first four (the (1, 1)
+  mesh runs phase 23's arithmetic); on four cards every configuration's
+  losses finite, and the (1, 4) mesh's B = 1 losses within 1e-3 relative
+  of the (1, 1) mesh's (the same batches; bf16 sums in another order
+  differ by 1.8e-4, a dropped tp all-reduce by more than the bound: see
+  PERF.md).
 
 Fails (non-zero exit, no result line) without a CUDA card, outside a
 checkout of the repository, or when any phase fails.
@@ -232,8 +268,10 @@ MEAN_THETA_L1 = 0.02
 RECOVERY = 0.90
 SUM_ATOL = 1e-4
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
-FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+from repro_torch.launch.mesh import (  # noqa: E402  (H100 SXM data sheet)
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOPS,
+    PEAK_FLOPS_F32 as FP32_FLOPS)
+
 INT32_OPS = FP32_FLOPS / 2     # Hopper SM: 64 INT32 lanes to 128 FP32 lanes
 
 KERNELS = ("fold_in", "lda_sample", "phi_update")
@@ -252,7 +290,9 @@ SEED = 0
 # the LM zoo (phases 19-21)
 LM_B, LM_S, LM_PREFILL, LM_STEPS, LM_MAX = 2, 16, 8, 4, 32
 LM_ARCH_REL = 1e-4             # card vs CPU, decode vs prefill (float32)
-QWEN_PARAMS = 4_026_727_936    # qwen3-4b's tensors, vocabulary padded to 153,600
+QWEN_PARAMS = 4_026_727_936    # qwen3-4b's tensors (norms included),
+                               # vocabulary padded to 153,600; the
+                               # reference's param_counts: 4,026,531,840
 QWEN_PROMPT = 64
 QWEN_F32_REL = 1e-3            # float32 decode vs prefill, of the scale
 QWEN_BF16_STEPS = 8
@@ -260,7 +300,6 @@ QWEN_BF16_REL = 0.1            # bf16 vs float32 of the same weights
 QWEN_BATCHES, QWEN_STEPS, QWEN_PROFILED = (8, 32), 64, 4
 QWEN_PREFILL, QWEN_MAX = 1024, 2048
 QWEN_S, QWEN_PREFILL_CALLS = 4096, 3
-BF16_FLOPS = 989e12            # H100 SXM dense bf16 (data sheet)
 
 # the LM zoo's training path (phases 22-24)
 LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 2, 16, 2
@@ -270,6 +309,14 @@ QWEN_TRAIN_B, QWEN_TRAIN_S = 1, 4096
 QWEN_TRAIN_WARM, QWEN_TRAIN_TIMED, QWEN_TRAIN_SPLIT = 2, 8, 2
 QWEN_STATE_RECKONED = 64.4e9   # bf16 params and grads, float32 master, m, v
 LM_EXAMPLE_STEPS = 60
+
+# the LM zoo over a mesh (phase 25)
+MESH_LM_STEPS = 4              # the first warms up, the other 3 are timed
+# (layout, B): "production" is make_production_mesh(4), (1, 4); "launcher"
+# is the launcher's training_mesh, (2, 2)
+MESH_LM_FOUR = (("production", 1), ("production", 4), ("launcher", 2))
+MESH_FOUR_LOSS_REL = 1e-3      # (1, 4) at B = 1 against one card's losses
+MESH_COLLECTIVE_TIMEOUT_S = 180  # a rank stuck this long fails the phase
 
 BATCH, BUCKETS, SWEEPS = 32, (32, 64, 128, 256), (8, 4)
 SERVE_DOCS, SWAP_DOCS = 256, 32
@@ -659,6 +706,7 @@ def mesh_phases(card, corpus, shard, seg, rows, st, single_tps,
 
     from repro_torch.configs import lda_nytimes
     from repro_torch.core import sync, trainer, updates
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.data.synthetic import nytimes_like
     from repro_torch.distributed import partition
     from repro_torch.kernels.phi_update import ops as phi_ops
@@ -708,7 +756,7 @@ def mesh_phases(card, corpus, shard, seg, rows, st, single_tps,
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
                                 rank=0, world_size=1)
         try:
-            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+            mesh = make_host_mesh(1)
             init_s = time.perf_counter() - t0
             try:             # fault F4: does NCCL take int16?
                 x = torch.ones(4, dtype=torch.int16, device=shard.device)
@@ -1466,20 +1514,21 @@ def lm_train_archs_phase(card: str, dev="cuda:0") -> None:
 
 
 def qwen_train_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
-    """Model FLOPs of one training step: 6 N T for the weights (the tied
-    head's product included, the embedding's gather counted as a product
-    too), plus the attention's score and PV products as executed (every
-    query chunk against all ``seq`` keys: the reference's recipe does not
-    skip masked blocks), forward and backward (3x the forward).  The
-    recomputation of the blocks and CE chunks in the backward is not
-    counted."""
+    """Model FLOPs of one training step: 6 N T for the weights (N the
+    parameter tensors' count, norms included; the tied head's product
+    included, the embedding's gather counted as a product too), plus the
+    attention's score and PV products as executed (every query chunk
+    against all ``seq`` keys: the reference's recipe does not skip masked
+    blocks), forward and backward (3x the forward).  The recomputation of
+    the blocks and CE chunks in the backward is not counted."""
     attn_fwd = 4 * tokens * seq * cfg.num_heads * cfg.hd * cfg.num_layers
     return 6 * n_params * tokens + 3 * attn_fwd
 
 
-def qwen_train_phase(card: str, dev="cuda:0") -> None:
+def qwen_train_phase(card: str, dev="cuda:0") -> list:
     """Phase 23: qwen3-4b training at full width on the card (see the
-    module docstring); everything is freed at the end."""
+    module docstring); everything is freed at the end.  Returns the
+    losses, in the order of the batches."""
     import math
 
     import torch
@@ -1606,6 +1655,7 @@ def qwen_train_phase(card: str, dev="cuda:0") -> None:
     if again > before + LM_TWO_STEP_RISE:
         raise AssertionError(f"qwen3-4b: the last batch's loss rose from "
                              f"{before} to {again}")
+    return losses
 
 
 def annotation_device_ms(prof, name: str) -> float | None:
@@ -1674,6 +1724,289 @@ def lm_train_launcher_phase(card: str) -> None:
     if not (served["device"].startswith("cuda") and served["finite"]
             and served["position"] == 64):
         raise AssertionError(f"the serving example: {served}")
+
+
+def mesh_arch_vs_card(name: str, mesh, dev) -> dict:
+    """Phase 25 for one architecture at its smoke() width: float32 (TF32
+    off), weights and a batch drawn on the CPU from a seed, LM_TRAIN_STEPS
+    mesh train steps (this rank's shards, gathered back after each step)
+    against as many one-device steps on ``dev`` from the same state and
+    batch (``train_steps``)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs.archs import smoke
+    from repro_torch.launch.specs import make_policy
+    from repro_torch.models import convert, parallel, zoo
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(smoke(name), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(SEED)
+    params = tf.init_params(cfg, gen)
+    B, S = LM_TRAIN_B, LM_TRAIN_S
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn(B, cfg.encoder_frames, cfg.d_model,
+                                      generator=gen)
+    if cfg.vision_tokens:
+        batch["patches"] = torch.randn(B, cfg.vision_tokens, cfg.d_model,
+                                       generator=gen)
+    one = train_steps(cfg, params, batch, dev, LM_TRAIN_STEPS)
+    policy = make_policy(mesh, B)
+    specs = tf.param_specs(cfg, policy)
+    on_dev = {k: v.to(dev) for k, v in batch.items()}
+    p_dev = tree_map(lambda a: a.to(dev, copy=True), params)
+    state = convert.shard_train_state(
+        zoo.TrainState(p_dev, adamw.init(p_dev)), specs, mesh,
+        torch.distributed.get_rank())
+    local = parallel.dp_rows(on_dev, policy.ctx)
+    step = zoo.make_train_step(cfg, policy=policy)
+    loss_err = norm_err = state_err = 0.0
+    excess, steps_equal, finite = -math.inf, True, True
+    for i, (ol, on, os_) in enumerate(one, 1):
+        state, m = step(state, local)
+        ml, mn = float(m["loss"]), float(m["grad_norm"])
+        finite &= math.isfinite(ml) and math.isfinite(mn)
+        loss_err = max(loss_err, abs(ml - ol) / abs(ol))
+        norm_err = max(norm_err, abs(mn - on) / on)
+        bound = sum(2 * lr_at(t) for t in range(1, i + 1)) + LM_STATE_ATOL
+        got = convert.flatten(convert.gather_train_state(state, specs, mesh))
+        for k, a in os_.items():
+            if k == "opt.step":
+                steps_equal &= int(got[k]) == int(a) == i
+                continue
+            e = float((got[k].to("cpu", torch.float64) - a).abs().max())
+            state_err = max(state_err, e)
+            excess = max(excess, e - bound)
+    return dict(arch=name, loss_rel_err=loss_err, grad_norm_rel_err=norm_err,
+                state_max_abs_err=state_err, state_within_bound=excess <= 0,
+                steps_equal=steps_equal, finite=finite)
+
+
+def mesh_step_nccl_ms(prof) -> float | None:
+    """The device time of a profiled window's NCCL kernels, or None when
+    the trace holds no device time."""
+    from torch.autograd import DeviceType
+
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and "nccl" in e.name.lower()]
+    if not any(e.device_type == DeviceType.CUDA for e in prof.events()):
+        return None
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def qwen_mesh_steps(mesh, batch: int, steps: int, dev,
+                    profiled: bool = False) -> dict:
+    """qwen3-4b at full width over ``mesh`` on this rank: this rank's
+    shards drawn from the seed (``init_params`` under the policy), ``steps``
+    mesh train steps on ``lm_batches(vocab, batch, 4096)`` (this rank's
+    dp rows), the first a warm-up and the rest between CUDA events; this
+    card's peak bytes; then one more step on every rank (its collectives
+    need them all), under ``torch.profiler`` where ``profiled`` (busy
+    share, NCCL kernel time).  Everything is freed at the end."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.archs import QWEN3_4B as cfg
+    from repro_torch.data.loader import PrefetchLoader, lm_batches
+    from repro_torch.launch import roofline
+    from repro_torch.launch.specs import make_policy
+    from repro_torch.models import parallel, zoo
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw
+
+    world = dist.get_world_size()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    policy = make_policy(mesh, batch)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), policy=policy)
+    torch.cuda.empty_cache()          # the whole model drawn, then freed
+    state = zoo.TrainState(params, adamw.init(params))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = lambda tree: sum(a.numel() * a.element_size()  # noqa: E731
+                              for a in tree_leaves(tree))
+    local_bytes = 2 * nbytes(params) + nbytes(state.opt)
+    S = QWEN_TRAIN_S
+    step = zoo.make_train_step(cfg, policy=policy)
+    loader = PrefetchLoader(lm_batches(cfg.vocab_size, batch, S, seed=SEED),
+                            device=dev)
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    losses, norms, busy = [], [], None
+    try:
+        state, m = step(state, parallel.dp_rows(next(loader), policy.ctx))
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        torch.cuda.synchronize()
+        a, b = ev(), ev()
+        a.record()
+        for _ in range(steps - 1):
+            state, m = step(state, parallel.dp_rows(next(loader),
+                                                    policy.ctx))
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        b.record()
+        b.synchronize()
+        step_ms = a.elapsed_time(b) / (steps - 1)
+        batch_ = parallel.dp_rows(next(loader), policy.ctx)
+        torch.cuda.synchronize()
+        ctx = (profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) if profiled
+               else contextlib.nullcontext())
+        with ctx as prof:
+            t1 = time.perf_counter()
+            state, m = step(state, batch_)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t1) * 1e3
+        if profiled:
+            busy = device_busy(prof, prof_ms, steps=1)
+            busy["nccl_device_ms"] = mesh_step_nccl_ms(prof)
+    finally:
+        loader.close()
+    peak = torch.cuda.max_memory_allocated(dev)
+    tokens = batch * S
+    flops = qwen_train_flops(cfg, QWEN_PARAMS, tokens, S)
+    ref_flops = roofline.step_flops(cfg, "train", batch, S)
+    out = dict(mesh=list(mesh.mesh.shape), ranks=world, batch=batch, seq=S,
+               dp=list(policy.dp), tp=policy.ctx.tp_size, init_s=init_s,
+               local_state_and_grad_bytes=local_bytes,
+               reckoned_bytes_per_card=QWEN_STATE_RECKONED / world,
+               peak_bytes=peak, steps=steps, ms_per_step=step_ms,
+               tokens_per_s=tokens / step_ms * 1e3, model_flops=flops,
+               mfu=flops / (step_ms / 1e3) / (world * BF16_FLOPS),
+               reference_model_flops=ref_flops,
+               mfu_reference_count=ref_flops / (step_ms / 1e3)
+               / (world * BF16_FLOPS),
+               losses=[float(x) for x in losses],
+               grad_norms=[float(x) for x in norms], profile=busy)
+    del params, state, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_phase(card: str, first_losses: list) -> list | None:
+    """Phase 25 on one card: a one-rank NCCL group and a (1, 1) mesh (see
+    the module docstring); then, with four cards, ``lm_mesh_four``, whose
+    rows it returns."""
+    import math
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.launch.mesh import make_production_mesh
+
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_production_mesh(1)
+            rows = [mesh_arch_vs_card(n, mesh, dev) for n in ARCHS
+                    if not ARCHS[n].is_moe]
+            arch_s = time.perf_counter() - t0
+            qwen = qwen_mesh_steps(mesh, QWEN_TRAIN_B, MESH_LM_STEPS, dev)
+        finally:
+            dist.destroy_process_group()
+    want = first_losses[:MESH_LM_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(qwen["losses"], want))
+    emit("lm_mesh", card=card, archs=rows, archs_s=arch_s, qwen3_4b=qwen,
+         phase23_losses=want, loss_rel_err_vs_phase23=rel,
+         seconds=time.perf_counter() - t0)
+    for r in rows:
+        if (r["loss_rel_err"] > LM_LOSS_REL or r["grad_norm_rel_err"] >
+                LM_NORM_REL or not r["state_within_bound"]
+                or not r["steps_equal"] or not r["finite"]):
+            raise AssertionError(f"{r['arch']} over a mesh: {r}")
+    if not all(math.isfinite(x) for x in qwen["losses"] + qwen["grad_norms"]):
+        raise AssertionError(f"qwen3-4b over a mesh: {qwen['losses']}")
+    if rel > LM_LOSS_REL:
+        raise AssertionError(f"qwen3-4b on a (1, 1) mesh: losses "
+                             f"{qwen['losses']} against phase 23's {want}")
+    if torch.cuda.device_count() >= 4:
+        return lm_mesh_four(card, qwen["losses"])
+    return None
+
+
+def _lm_mesh_rank(rank: int, layout: str, batch: int, out_dir: str) -> None:
+    """One of ``lm_mesh_four``'s NCCL ranks: ``qwen_mesh_steps`` on card
+    ``rank`` over the ``layout`` of MESH_LM_FOUR, its row written to
+    ``out_dir``."""
+    import torch
+
+    from repro_torch.distributed.launch import training_mesh
+    from repro_torch.launch.mesh import make_production_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = (make_production_mesh(4) if layout == "production"
+            else training_mesh("cuda", "2d"))
+    row = qwen_mesh_steps(mesh, batch, MESH_LM_STEPS, dev,
+                          profiled=rank == 0)
+    row["device"] = torch.cuda.get_device_name(dev)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(row))
+
+
+def lm_mesh_four(card: str, one_card_losses: list, configs=MESH_LM_FOUR,
+                 rank_fn=None) -> list:
+    """Phase 25 on four cards: for each (layout, B) of ``configs``, 4
+    spawned NCCL ranks train qwen3-4b at full width (``_lm_mesh_rank``);
+    one line a configuration with every card's peak bytes and, at B = 1,
+    the losses' largest relative difference from ``one_card_losses`` (the
+    same batches on one card, bf16 summed in another order), which must
+    stay within MESH_FOUR_LOSS_REL.  ``rank_fn`` (``_lm_mesh_rank`` unless
+    given) runs each rank."""
+    import math
+    import tempfile
+
+    from repro_torch.distributed import launch
+
+    out = []
+    for layout, batch in configs:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            launch.spawn(rank_fn or _lm_mesh_rank, 4,
+                         args=(layout, batch, tmp),
+                         device_type="cuda", store_dir=tmp,
+                         timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
+            ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                     for r in range(4)]
+        lead = ranks[0]
+        row = dict(lead, layout=layout,
+                   peak_bytes_per_card=[r["peak_bytes"] for r in ranks],
+                   ms_per_step_per_rank=[r["ms_per_step"] for r in ranks],
+                   seconds=time.perf_counter() - t0)
+        row.pop("peak_bytes")
+        if batch == 1:
+            row["loss_rel_diff_vs_one_card"] = max(
+                abs(a - b) / abs(b)
+                for a, b in zip(lead["losses"], one_card_losses))
+        emit("lm_mesh_four", card=card, **row)
+        out.append(row)
+        where = f"qwen3-4b on a {lead['mesh']} mesh at B = {batch}"
+        if not all(math.isfinite(x) for r in ranks
+                   for x in r["losses"] + r["grad_norms"]):
+            raise AssertionError(f"{where}: non-finite losses")
+        if row.get("loss_rel_diff_vs_one_card", 0.0) > MESH_FOUR_LOSS_REL:
+            raise AssertionError(f"{where}: losses {lead['losses']} against "
+                                 f"one card's {one_card_losses}")
+    return out
 
 
 def train_phases(card: str, scale: float, iters: int,
@@ -2275,8 +2608,11 @@ def main() -> int:
 
     # -- 22-24. the LM zoo's training path -----------------------------------
     lm_train_archs_phase(card)
-    qwen_train_phase(card)
+    first_losses = qwen_train_phase(card)
     lm_train_launcher_phase(card)
+
+    # -- 25. the LM zoo's training over a mesh -------------------------------
+    lm_mesh_phase(card, first_losses)
     print(json.dumps({"kernels": [k3_row] + train_rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(card, flush=True)

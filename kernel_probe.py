@@ -15,6 +15,10 @@ and the phi-rebuild kernel K4 (``phi_update.cu``) and the fold-in kernel K3
     python3 kernel_probe.py --pubmed-memory S1,S2,...   # peak device
                                                 # memory of a PubMed-shaped
                                                 # iteration at each scale
+    python3 kernel_probe.py --lm-mesh-four      # phases 23 and 25 on four
+                                                # cards, then a planted
+                                                # fault against phase 25's
+                                                # four-card loss gate
 
 Each source is built several ways with ``-D``, one ``nvcc`` each, all
 started together:
@@ -475,9 +479,72 @@ def pubmed_memory(scales) -> int:
     return 0
 
 
+def _dropped_reduce_rank(rank: int, layout: str, batch: int,
+                         out_dir: str) -> None:
+    """``chip_smoke._lm_mesh_rank`` with a planted fault: in the forward of
+    every step, the tp all-reduce of the first MLP's row-parallel output
+    is skipped, so each rank carries its own partial sum on (the backward's
+    recomputation of that layer reduces as it should)."""
+    from repro_torch.models import parallel, zoo
+
+    reduce_out, loss_fn, dropped = parallel.reduce_out, zoo.loss_fn, [False]
+
+    def faulty_reduce(x, ctx, axes=None):
+        if not dropped[0] and sys._getframe(1).f_code.co_name == "mlp":
+            dropped[0] = True
+            return x
+        return reduce_out(x, ctx, axes)
+
+    def faulty_loss(*args, **kw):
+        dropped[0] = False
+        return loss_fn(*args, **kw)
+
+    parallel.reduce_out, zoo.loss_fn = faulty_reduce, faulty_loss
+    cs._lm_mesh_rank(rank, layout, batch, out_dir)
+
+
+def lm_mesh_four_probe() -> int:
+    """Phase 23, then phase 25, which on four cards runs ``lm_mesh_four``
+    and its gate on the (1, 4) mesh's B = 1 losses; then (1, 4) at B = 1
+    once more with ``_dropped_reduce_rank``'s planted fault, which the
+    gate must catch.  Exits 0 only when it does."""
+    import json
+
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        print("kernel_probe --lm-mesh-four: needs four cards",
+              file=sys.stderr)
+        return 2
+    card = cs.card_line()
+    torch.empty(1, device="cuda:0")    # memory stats need the allocator
+    losses = cs.qwen_train_phase(card)[:cs.MESH_LM_STEPS]
+    rows = cs.lm_mesh_phase(card, losses)
+    keys = ("layout", "mesh", "batch", "ms_per_step", "tokens_per_s", "mfu",
+            "mfu_reference_count", "peak_bytes_per_card",
+            "loss_rel_diff_vs_one_card")
+    print(json.dumps({"phase": "lm_mesh_four_summary",
+                      "rows": [{k: r.get(k) for k in keys} for r in rows]}),
+          flush=True)
+    try:
+        cs.lm_mesh_four(card, losses, configs=(("production", 1),),
+                        rank_fn=_dropped_reduce_rank)
+    except AssertionError as exc:
+        print(json.dumps({"phase": "planted_fault", "caught": True,
+                          "bound": cs.MESH_FOUR_LOSS_REL,
+                          "message": str(exc)}), flush=True)
+        print(card, flush=True)
+        return 0
+    print(json.dumps({"phase": "planted_fault", "caught": False,
+                      "bound": cs.MESH_FOUR_LOSS_REL}), flush=True)
+    return 1
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 2 and sys.argv[1] == "--lm-mesh-four":
+        return lm_mesh_four_probe()
     if len(sys.argv) == 3 and sys.argv[1] == "--pubmed-memory":
         return pubmed_memory([float(x) for x in sys.argv[2].split(",")])
     if len(sys.argv) == 3 and sys.argv[1] == "--smoke-of":

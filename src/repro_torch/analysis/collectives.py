@@ -12,7 +12,9 @@ group exists) and shows only at scale.  The contract is pinned two ways:
    is CC002; a group token outside the declared set is CC001.
 *  **Executed**: the training step, the likelihood and both sync wires run
    on the CPU against a recording stand-in for ``torch.distributed`` whose
-   groups are tagged data / model / world.  Every recorded call must come
+   groups are tagged data / model / world; so does a train step of the LM
+   zoo over a (1, 2) and a (2, 1) mesh, whose collectives must all ride
+   the model group and the data group respectively.  Every recorded call must come
    from a declared scope with a declared wire type and no int16 on any wire
    (fault F4: gloo and NCCL take none) (CC004), and phi-sized deltas must
    travel over the data group, theta partials and phi_sum over the model
@@ -60,6 +62,7 @@ _GROUP_ARGS = ("group", "dst", "src")
 
 _SYNC = "src/repro_torch/core/sync.py"
 _PARTITION = "src/repro_torch/distributed/partition.py"
+_PARALLEL = "src/repro_torch/models/parallel.py"
 
 # module -> {dotted scope: (group tokens it may name, wire types)}.  A
 # pass-through helper names its ``group`` parameter; the executed check
@@ -79,6 +82,16 @@ SCOPE_CONTRACTS: dict[str, dict[str, tuple[frozenset, frozenset]]] = {
                                     frozenset({"int32"})),
         "DistributedLDA._publish.blocks": (frozenset({"src"}),
                                            frozenset({"int32"})),
+    },
+    # the LM zoo over a mesh: every collective over one mesh axis's group
+    # (``ctx.groups[axis]``), activations and weights in float32 or bf16
+    _PARALLEL: {
+        "_all_gather": (frozenset({"ctx", "groups", "axis"}),
+                        frozenset({"float32", "bfloat16"})),
+        "_reduce_scatter": (frozenset({"ctx", "groups", "axis"}),
+                            frozenset({"float32", "bfloat16"})),
+        "all_reduce_": (frozenset({"ctx", "groups", "a"}),
+                        frozenset({"float32", "bfloat16"})),
     },
     "src/repro_torch/core/trainer.py": {},
     "src/repro_torch/train/driver.py": {},
@@ -211,15 +224,32 @@ class SimDist:
             dtype=str(t.dtype).replace("torch.", ""), numel=t.numel(),
             sent=sent))
 
+    ReduceOp = torch.distributed.ReduceOp
+
     def get_world_size(self, group=None):
         return self.size
 
-    def all_reduce(self, x, group=None, async_op=False):
+    def get_backend(self, group=None):
+        return "sim"
+
+    def all_reduce(self, x, op=torch.distributed.ReduceOp.SUM, group=None,
+                   async_op=False):
         G = self.size
         self._record("all_reduce", group, x,
                      2 * (G - 1) * x.numel() * x.element_size() // G)
         got = self._exchange(x)
-        x.copy_(sum(got[1:], got[0]))
+        if op == torch.distributed.ReduceOp.MAX:
+            x.copy_(torch.stack(got).amax(0))
+        else:
+            x.copy_(sum(got[1:], got[0]))
+        return self._Done()
+
+    def reduce_scatter_tensor(self, out, inp, group=None, async_op=False):
+        G, r = self.size, self._rank()
+        self._record("reduce_scatter_tensor", group, inp,
+                     (G - 1) * inp.numel() * inp.element_size() // G)
+        got = self._exchange(inp)
+        out.copy_(sum(got[1:], got[0]).view(G, -1)[r].view_as(out))
         return self._Done()
 
     def all_to_all_single(self, out, inp, group=None, async_op=False):
@@ -358,6 +388,80 @@ def check_training_wires() -> list[Finding]:
                 CHECKER, "CC004", _SYNC, 0, "compressed_sync=True ran no "
                 "byte-wire all_to_all_single", scope="compressed_sync_phi"))
         findings.extend(check_recorded(sim.calls, V, K, D))
+    return findings
+
+
+class _SimMesh:
+    """A ("data", "model") ``DeviceMesh`` stand-in for one of ``SimDist``'s
+    ranks: sizes, this rank's coordinates, a role-tagged group per axis."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, shape, rank: int):
+        self.shape = tuple(shape)
+        self.coord = (rank // shape[1], rank % shape[1])
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+    def get_local_rank(self, dim: int) -> int:
+        return self.coord[dim]
+
+    def get_group(self, dim: int) -> Group:
+        return Group(self.mesh_dim_names[dim])
+
+
+def check_lm_mesh_wires(cases=(((1, 2), "model"), ((2, 1), "data")),
+                        arch: str = "qwen3-4b") -> list[Finding]:
+    """Executed CC001/CC004 for the LM zoo over a mesh: one float32 train
+    step of ``arch``'s smoke config as two ``SimDist`` ranks on each mesh
+    of ``cases``, where one axis alone has two ranks: every collective must
+    come from a declared scope of ``models/parallel.py`` with a declared
+    wire type, ride that axis's group (tp collectives the model group, the
+    FSDP gathers, reduce-scatters and the loss the data group), and some
+    must run."""
+    import dataclasses
+
+    from repro_torch.configs.archs import smoke
+    from repro_torch.launch.specs import make_policy
+    from repro_torch.models import parallel, zoo
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(smoke(arch), dtype=torch.float32)
+    toks = torch.arange(2 * 8).view(2, 8) % cfg.vocab_size
+    findings: list[Finding] = []
+    for shape, role in cases:
+        sim = SimDist(2)
+
+        def step(rank, shape=shape):
+            policy = make_policy(_SimMesh(shape, rank), 2)
+            params = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                                    policy=policy)
+            batch = parallel.dp_rows({"tokens": toks, "labels": toks},
+                                     policy.ctx)
+            zoo.make_train_step(cfg, policy=policy)(
+                zoo.TrainState(params, adamw.init(params)), batch)
+
+        real = parallel.dist
+        parallel.dist = sim
+        try:
+            sim.run(step)
+        finally:
+            parallel.dist = real
+        scope = f"lm-mesh:{shape[0]}x{shape[1]}"
+        findings.extend(check_recorded(sim.calls))
+        if not sim.calls:
+            findings.append(Finding(
+                CHECKER, "CC001", _PARALLEL, 0, f"a train step on a {shape} "
+                "mesh ran no collective", scope=scope))
+        for c in sim.calls:
+            if c["role"] != role:
+                findings.append(Finding(
+                    CHECKER, "CC001", _rel(c["file"]), 0,
+                    f"{c['call']} from {c['scope']} went over the "
+                    f"{c['role']} group on a {shape} mesh, whose only "
+                    f"axis of two ranks is {role}", scope=scope))
     return findings
 
 
@@ -593,6 +697,7 @@ def run(root: Path) -> list[Finding]:
         if path.exists():
             findings.extend(scan_module(path, rel, contracts))
     findings.extend(check_training_wires())
+    findings.extend(check_lm_mesh_wires())
     findings.extend(check_byte_wire())
     findings.extend(check_route_roundtrip())
     findings.extend(check_serving_bytes())

@@ -7,6 +7,7 @@ rank's work ends.
 """
 from __future__ import annotations
 
+import datetime
 import os
 import tempfile
 
@@ -21,7 +22,8 @@ def backend_for(device_type: str) -> str:
 def training_mesh(device_type: str, mode: str):
     """The mesh of ``repro.launch.train`` over every rank of the default
     group: ("data",) in 1d; ("data", "model") of shape (n // 2, 2) in 2d
-    (one data row when n < 2)."""
+    (one data row when n < 2): the reference's ``(n // 2, min(n, 2))`` of
+    the LDA and the LM workloads alike."""
     from torch.distributed.device_mesh import init_device_mesh
 
     n = dist.get_world_size()
@@ -44,13 +46,17 @@ def init_from_env(device_type: str, init_method: str = "env://") -> None:
                             world_size=int(os.environ["WORLD_SIZE"]))
 
 
-def _rank_main(rank, fn, world, init_method, device_type, args):
+def _rank_main(rank, fn, world, init_method, device_type, args,
+               timeout_s=None):
     if device_type == "cuda":
         torch.cuda.set_device(rank)
     else:       # the host's cores shared out, not each rank taking them all
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    kw = {}
+    if timeout_s is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(backend_for(device_type), init_method=init_method,
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world, **kw)
     try:
         fn(rank, *args)
     finally:
@@ -58,12 +64,15 @@ def _rank_main(rank, fn, world, init_method, device_type, args):
 
 
 def spawn(fn, nprocs: int, args=(), device_type: str = "cpu",
-          store_dir: str | None = None) -> None:
+          store_dir: str | None = None,
+          timeout_s: float | None = None) -> None:
     """Run ``fn(rank, *args)`` in ``nprocs`` spawned processes, each a rank
     of a new default group (gloo on ``cpu``, NCCL on ``cuda``, rank r on
     card r) met through a ``file://`` store in a fresh directory under
-    ``store_dir``.  ``fn`` must be importable by name.  Raises if a rank
-    fails; returns when every rank has ended."""
+    ``store_dir``.  ``fn`` must be importable by name.  ``timeout_s``
+    bounds how long a collective waits for the other ranks (torch's
+    default otherwise).  Raises if a rank fails; returns when every rank
+    has ended."""
     import torch.multiprocessing as mp
 
     if device_type == "cuda" and torch.cuda.device_count() < nprocs:
@@ -73,4 +82,5 @@ def spawn(fn, nprocs: int, args=(), device_type: str = "cpu",
         store = "file://" + os.path.join(tmp, "store")
         mp.start_processes(_rank_main, nprocs=nprocs, join=True,
                            start_method="spawn",
-                           args=(fn, nprocs, store, device_type, tuple(args)))
+                           args=(fn, nprocs, store, device_type, tuple(args),
+                                 timeout_s))

@@ -1,0 +1,58 @@
+"""Meshes of H100 cards, and the hardware constants of the roofline.
+
+The port of ``repro.launch.mesh``.  No device or process-group state is
+touched at import: meshes are built by functions, over the ranks of the
+default process group (``torch.distributed.init_process_group`` first,
+one rank a card; gloo ranks make CPU meshes, NCCL ranks card meshes).
+The reference's production target is a TPU v5e pod of 16 x 16 = 256
+chips ("data" x "model"), with a leading "pod" axis for two pods (512
+chips); here the card count is a parameter.
+"""
+from __future__ import annotations
+
+# NVIDIA H100 SXM (data sheet, dense rates, 700 W): the roofline's
+# denominators, the ones chip_smoke.py uses.  The reference's HBM_BYTES
+# and ICI_BW feed only its analyze_cell, which comes with the dry run
+# (ROADMAP 13e), and so do their counterparts: 80 GB a card, and NVLink
+# 4's 900 GB/s a card (the same data sheet; no run of this repository
+# has timed a collective against it).
+PEAK_FLOPS_BF16 = 989e12       # per card, bf16 on the tensor cores
+PEAK_FLOPS_F32 = 67e12         # per card, float32 outside the tensor cores
+HBM_BW = 3.35e12               # bytes/s per card
+
+# one host's NVLink domain: tensor parallelism stays inside it
+HOST_CARDS = 8
+
+
+def _init(shape: tuple, names: tuple):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    kind = "cpu" if dist.get_backend() == "gloo" else "cuda"
+    return init_device_mesh(kind, shape, mesh_dim_names=names)
+
+
+def make_production_mesh(chips: int, pods: int = 1):
+    """A ("data", "model") ``DeviceMesh`` of ``chips`` cards a pod, with a
+    leading "pod" axis when ``pods`` > 1: the model axis is
+    ``min(chips, HOST_CARDS)`` wide, so tensor parallelism runs over
+    NVLink.  The default group must hold ``pods * chips`` ranks."""
+    model = min(chips, HOST_CARDS)
+    if chips % model:
+        raise ValueError(f"{chips} cards do not split into model groups of "
+                         f"{model}")
+    shape, names = (chips // model, model), ("data", "model")
+    if pods > 1:
+        shape, names = (pods,) + shape, ("pod",) + names
+    return _init(shape, names)
+
+
+def make_host_mesh(n: int | None = None, name: str = "data"):
+    """Every rank of the default group on one axis (``n``, when given,
+    must be the group's size)."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    if n is not None and n != world:
+        raise ValueError(f"a host mesh of {n} ranks in a group of {world}")
+    return _init((world,), (name,))

@@ -1,0 +1,109 @@
+"""Analytic parameter counts and model FLOPs of every (arch x shape) cell.
+
+The port of ``repro.launch.roofline``'s arithmetic, held equal (``==``) to
+the reference's for every ``configs.archs.cells()`` entry:
+
+    train:   6 * N_active * tokens  + attention term
+    prefill: 2 * N_active * tokens  + attention term
+    decode:  2 * N_active * batch   + the attention's KV-read term
+
+``param_counts`` counts no norm weights and no biases, as the reference
+does (qwen3-4b: 4,026,531,840, where its tensors hold 4,026,727,936).
+``step_flops`` takes a run's own batch and sequence, so ``chip_smoke.py``
+can count the work of the batch it trains.
+
+``analyze_cell``, ``render_table`` and ``CHIPS`` read the reference's
+dry-run records (XLA cost analysis of HLO compiled for 256 TPU chips):
+they wait for ROADMAP item 13e, which ports the memory-fit half of that
+tooling to H100 meshes.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.archs import ARCHS, SHAPES
+from repro_torch.models.common import ModelConfig, padded_vocab
+from repro_torch.models.recurrent import ssd_dims
+
+
+def param_counts(cfg: ModelConfig) -> tuple[float, float]:
+    """(total, active-per-token) parameter counts."""
+    D = cfg.d_model
+    hd = cfg.hd if cfg.num_heads else 0  # attn-free archs (mamba2)
+    embed = padded_vocab(cfg.vocab_size) * D * (1 if cfg.tie_embeddings else 2)
+    total = embed
+    active = embed
+    specs = list(cfg.pattern) * cfg.num_blocks + list(cfg.tail)
+    for spec in specs:
+        if spec.kind in ("global", "local"):
+            attn = D * hd * (cfg.num_heads + 2 * cfg.num_kv_heads) \
+                + cfg.num_heads * hd * D
+            total += attn
+            active += attn
+        elif spec.kind == "rglru":
+            r = D * cfg.rglru_width * 2 + 7 * cfg.rglru_width
+            total += r
+            active += r
+        elif spec.kind == "ssd":
+            H, P, N = ssd_dims(cfg)
+            r = D * (2 * H * P + 2 * N + H) + H * P * D + H * P
+            total += r
+            active += r
+        if cfg.is_moe:
+            per_exp = 3 * D * cfg.moe_d_ff
+            total += cfg.num_experts * per_exp + D * cfg.num_experts
+            active += cfg.num_experts_per_tok * per_exp + D * cfg.num_experts
+        elif cfg.d_ff:
+            m = 3 * D * cfg.d_ff
+            total += m
+            active += m
+        if cfg.encoder_layers:  # cross attention in decoder layers
+            c = 2 * D * hd * (cfg.num_heads + cfg.num_kv_heads)
+            total += c
+            active += c
+    if cfg.encoder_layers:
+        enc = cfg.encoder_layers * (
+            D * hd * (cfg.num_heads + 2 * cfg.num_kv_heads)
+            + cfg.num_heads * hd * D + 3 * D * cfg.d_ff)
+        total += enc
+        active += enc
+    return float(total), float(active)
+
+
+def step_flops(cfg: ModelConfig, kind: str, B: int, S: int) -> float:
+    """Analytic useful FLOPs of one step of ``kind`` ("train", "prefill" or
+    "decode") at batch ``B`` and sequence (or context) ``S``."""
+    total, active = param_counts(cfg)
+    specs = list(cfg.pattern) * cfg.num_blocks + list(cfg.tail)
+
+    if kind == "train":
+        tokens = B * S
+        flops = 6.0 * active * tokens
+        # attention scores+values: 12 * B * S * S_eff * H * hd per attn layer
+        for spec in specs:
+            if spec.kind in ("global", "local"):
+                s_eff = min(spec.window or S, S) if spec.kind == "local" else S
+                flops += 12.0 * B * S * (s_eff / 2 if spec.kind != "local"
+                                         else s_eff) * cfg.num_heads * cfg.hd
+        return flops
+    if kind == "prefill":
+        tokens = B * S
+        flops = 2.0 * active * tokens
+        for spec in specs:
+            if spec.kind in ("global", "local"):
+                s_eff = min(spec.window or S, S) if spec.kind == "local" else S
+                flops += 4.0 * B * S * (s_eff / 2 if spec.kind != "local"
+                                        else s_eff) * cfg.num_heads * cfg.hd
+        return flops
+    # decode: one token per sequence
+    flops = 2.0 * active * B
+    for spec in specs:
+        if spec.kind in ("global", "local"):
+            s_eff = min(spec.window or S, S) if spec.kind == "local" else S
+            flops += 4.0 * B * s_eff * cfg.num_heads * cfg.hd
+    return flops
+
+
+def model_flops(arch: str, shape: str) -> float:
+    """Analytic useful FLOPs for one step of this cell."""
+    sh = SHAPES[shape]
+    return step_flops(ARCHS[arch], sh["kind"], sh["global_batch"],
+                      sh["seq_len"])

@@ -22,12 +22,17 @@ Over several devices (one process per rank):
 * ``--mode 2d`` lays the ranks out as a (data, model) mesh; on one device
   it trains without a mesh, as the reference does.
 
-``--workload lm --arch <id>`` trains the architecture's ``smoke()``
-config (the reference trains the full config only on 16 or more devices)
-from seeded random weights on synthetic batches (B = 8, S = 128) drawn on
-the device each step, printing the loss every 10 steps.  It runs on one
-device: with ``--host-devices`` or ``--distributed`` (the LM zoo's mesh
-half, ROADMAP item 13, not ported) it is refused with a non-zero exit.
+``--workload lm --arch <id>`` trains from seeded random weights on
+synthetic batches (B = 8, S = 128) drawn on the device each step,
+printing the loss every 10 steps.  On one device it trains the
+architecture's ``smoke()`` config.  With ``--host-devices N`` or
+``--distributed`` it trains over the reference's ("data", "model") mesh
+of shape (N // 2, min(N, 2)) with ``make_policy(mesh, batch=8)``: tensor
+parallelism over "model", the batch and ZeRO-3 over "data" (gloo ranks on
+the CPU, NCCL on cards); ``smoke()`` below 16 ranks and the full config
+from 16, as the reference.  MoE archs over a mesh are refused (their
+expert-parallel MoE is ROADMAP item 13d), and so is an odd rank count
+above one (the mesh would not cover the ranks).
 """
 from __future__ import annotations
 
@@ -36,10 +41,9 @@ import math
 import sys
 
 LM_BATCH, LM_SEQ, LM_SEED = 8, 128, 0
-LM_MESH_REFUSED = ("--workload lm trains on one device: --host-devices and "
-                   "--distributed need the LM zoo's mesh half (tensor- and "
-                   "expert-parallel layers), ROADMAP item 13, which is not "
-                   "ported")
+LM_MESH_MOE = ("--workload lm over a mesh: {arch} is a MoE, and the "
+               "expert-parallel MoE (moe_ffn_ep) is ROADMAP item 13d, not "
+               "ported")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -85,32 +89,57 @@ def build_argparser() -> argparse.ArgumentParser:
 def refused(args) -> str | None:
     """The message for a flag combination the port does not run, else
     None."""
-    if args.workload == "lm" and (args.host_devices or args.distributed):
-        return LM_MESH_REFUSED
     if args.workload == "lm" and not args.arch:
         return "--arch is required for --workload lm"
+    if args.workload == "lm" and (args.host_devices or args.distributed):
+        from repro_torch.configs.archs import ARCHS
+
+        if ARCHS[args.arch].is_moe:
+            return LM_MESH_MOE.format(arch=args.arch)
+        n = args.host_devices
+        if n > 1 and n % 2:
+            return (f"--workload lm over {n} ranks: the ({n // 2}, 2) mesh "
+                    "would not cover them; use an even count")
     return None
 
 
 def run_lm(args) -> int:
-    """Train ``smoke(args.arch)`` for ``args.iters`` steps on one device
-    (``cuda:0`` unless ``--device`` says otherwise)."""
+    """Train for ``args.iters`` steps: ``smoke(args.arch)`` on one device
+    (``cuda:0`` unless ``--device`` says otherwise), or, as this rank of
+    the default group when one is initialised, over the reference's mesh
+    (the module docstring)."""
     import time
 
     import torch
+    import torch.distributed as dist
 
-    from repro_torch.configs.archs import smoke
+    from repro_torch.configs.archs import ARCHS, smoke
     from repro_torch.device import resolve_device
+    from repro_torch.models import parallel
     from repro_torch.models import transformer as tf
     from repro_torch.models import zoo
+    from repro_torch.models.common import NO_SHARDING
     from repro_torch.optim import adamw
 
     dev = resolve_device(args.device)
-    cfg = smoke(args.arch)
+    cfg, policy, where, lead = smoke(args.arch), NO_SHARDING, str(dev), True
+    if dist.is_initialized():
+        from repro_torch.distributed.launch import training_mesh
+        from repro_torch.launch.specs import make_policy
+
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        n = dist.get_world_size()
+        cfg = smoke(args.arch) if n < 16 else ARCHS[args.arch]
+        mesh = training_mesh(dev.type, "2d")
+        shape = tuple(mesh.mesh.shape)
+        policy = make_policy(mesh, batch=LM_BATCH)
+        where = f"a {shape} mesh of {n} {dev.type} ranks"
+        lead = dist.get_rank() == 0
     params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
-        LM_SEED))
+        LM_SEED), policy=policy)
     state = zoo.TrainState(params, adamw.init(params))
-    step = zoo.make_train_step(cfg)
+    step = zoo.make_train_step(cfg, policy=policy)
     # one generator per modality: drawing tokens, frames and patches from
     # one stream would correlate the three synthetic inputs
     g_tok, g_frames, g_patch = (
@@ -131,13 +160,17 @@ def run_lm(args) -> int:
             batch["patches"] = torch.randn(
                 (B, cfg.vision_tokens, cfg.d_model), generator=g_patch,
                 dtype=torch.bfloat16, device=dev)
+        if policy.enabled:
+            batch = parallel.dp_rows(batch, policy.ctx)
         state, m = step(state, batch)
-        if (i + 1) % 10 == 0:
+        if (i + 1) % 10 == 0 and lead:
             print(f"step {i + 1}: loss {float(m['loss']):.4f}", flush=True)
     wall = time.perf_counter() - t0
-    print(f"[done] {cfg.name} on {dev}: {args.iters} steps of B = {B}, "
-          f"S = {S}, final loss {float(m['loss']):.4f}, "
-          f"{args.iters * B * S / max(wall, 1e-9):.0f} tokens/s", flush=True)
+    if lead:
+        print(f"[done] {cfg.name} on {where}: {args.iters} steps of B = "
+              f"{B}, S = {S}, final loss {float(m['loss']):.4f}, "
+              f"{args.iters * B * S / max(wall, 1e-9):.0f} tokens/s",
+              flush=True)
     return 0
 
 
@@ -193,7 +226,8 @@ def run_lda(args) -> int:
 
 
 def _local_rank(rank: int, argv: list[str]) -> None:
-    run_lda(build_argparser().parse_args(argv))
+    args = build_argparser().parse_args(argv)
+    run_lm(args) if args.workload == "lm" else run_lda(args)
 
 
 def main(argv=None) -> int:
@@ -203,7 +237,8 @@ def main(argv=None) -> int:
     if msg:
         print(f"[train] {msg}", file=sys.stderr)
         return 2
-    if args.workload == "lm":
+    if args.workload == "lm" and not (args.host_devices
+                                      or args.distributed):
         return run_lm(args)
     if args.host_devices:
         from repro_torch.device import resolve_device
@@ -222,7 +257,7 @@ def main(argv=None) -> int:
         launch.init_from_env(resolve_device(args.device).type,
                              args.init_method)
         try:
-            return run_lda(args)
+            return run_lm(args) if args.workload == "lm" else run_lda(args)
         finally:
             dist.destroy_process_group()
     return run_lda(args)

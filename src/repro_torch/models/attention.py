@@ -14,6 +14,15 @@ before the PV product); ``F.scaled_dot_product_attention`` has no softcap
 and rounds otherwise, so it is not used.  Decode writes the new key and
 value into the cache in place (the reference donates the cache to its
 step; here the caller's state is the one updated).
+
+Under a ``ShardingPolicy`` (training over a mesh) the heads are sharded
+over tp where they divide (``shard_if``, ``param_specs``): column-parallel
+q, k, v on this rank's heads, the recipe unchanged on them, and the
+row-parallel ``wo`` output all-reduced over tp.  When the query heads
+divide and the KV heads do not (GQA with few KV heads), ``wk`` and ``wv``
+are replicated and each rank computes the KV heads its query heads read
+(their *global* groups).  When the query heads do not divide, the layer is
+replicated over tp.  Decode over a mesh is not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -22,7 +31,9 @@ from typing import NamedTuple
 import torch
 
 from ..device import resolve_device
-from .common import ModelConfig, init_dense, remat, rms_norm, rope
+from . import parallel
+from .common import (NO_SHARDING, P, ModelConfig, ShardingPolicy, init_dense,
+                     remat, rms_norm, rope)
 
 NEG_INF = -2.0e38
 Q_CHUNK = 1024  # query-block size for chunked attention
@@ -65,8 +76,76 @@ def init_attn(cfg: ModelConfig, generator: torch.Generator) -> AttnParams:
     )
 
 
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> AttnParams:
+    """The specs of one layer's ``AttnParams`` (the reference's
+    ``transformer.param_specs.attn_spec``): heads over tp where they
+    divide, the model dim over the FSDP axes."""
+    tq = policy.shard_if(cfg.num_heads)     # replicate when H % tp != 0
+    tkv = policy.shard_if(cfg.num_kv_heads)  # GQA: kv often < tp
+    fs = policy._fs()
+    return AttnParams(
+        wq=P(fs, tq, None), wk=P(fs, tkv, None), wv=P(fs, tkv, None),
+        wo=P(tq, None, fs),
+        bq=P(tq, None), bk=P(tkv, None), bv=P(tkv, None),
+        q_norm=P(None), k_norm=P(None))
+
+
+def _kv_heads(H: int, Hkv: int, tq, tkv, ctx) -> tuple[slice, list | None]:
+    """Which global KV heads this rank's query heads read when the query
+    heads are sharded and the KV heads replicated: a contiguous range whose
+    groups the local query heads fill evenly (the grouped ``_sdpa`` on
+    them), else the range and, per local query head, its KV head within it
+    (gathered, one KV head a query head)."""
+    if tq is None or tkv is not None:
+        return slice(None), None
+    Hl, g = H // ctx.tp_size, H // Hkv
+    first = ctx.tp_rank * Hl
+    owner = [(first + i) // g for i in range(Hl)]
+    lo, hi = owner[0], owner[-1] + 1
+    gl = Hl // (hi - lo)
+    if Hl % (hi - lo) == 0 and owner == [lo + i // gl for i in range(Hl)]:
+        return slice(lo, hi), None
+    return slice(lo, hi), [o - lo for o in owner]
+
+
+def _local_weights(p: AttnParams, cfg: ModelConfig, policy: ShardingPolicy):
+    """The weights of this rank's heads, FSDP-gathered, with the
+    collectives their use implies: the weights replicated over tp that
+    tp-partitioned heads read (the norms; ``wk``, ``wv`` and their biases
+    when the KV heads do not divide) enter through ``copy_in``, their
+    gradients being partial sums.  Returns (weights, the local query
+    heads' KV map of ``_kv_heads``, whether the heads are partitioned)."""
+    if not policy.enabled:
+        return p, None, False
+    sp = param_specs(cfg, policy)
+    ctx = policy.ctx
+    tq, tkv = policy.shard_if(cfg.num_heads), policy.shard_if(cfg.num_kv_heads)
+    split = tq is not None and ctx.tp_size > 1
+    kv, per_head = _kv_heads(cfg.num_heads, cfg.num_kv_heads, tq, tkv, ctx)
+
+    def g(w, stored, wanted):
+        return policy.gather_fsdp(w, wanted, stored)
+
+    def rep(w, replicated=True):  # replicated over tp, read by local heads
+        if split and replicated and w is not None:
+            return parallel.copy_in(w, ctx)
+        return w
+
+    kv_rep = tkv is None
+    wk = rep(g(p.wk, sp.wk, P(None, tkv, None)), kv_rep)[:, kv]
+    wv = rep(g(p.wv, sp.wv, P(None, tkv, None)), kv_rep)[:, kv]
+    bk = bv = None
+    if p.bk is not None:
+        bk, bv = rep(p.bk, kv_rep)[kv], rep(p.bv, kv_rep)[kv]
+    local = AttnParams(
+        wq=g(p.wq, sp.wq, P(None, tq, None)), wk=wk, wv=wv,
+        wo=g(p.wo, sp.wo, P(tq, None, None)),
+        bq=p.bq, bk=bk, bv=bv, q_norm=rep(p.q_norm), k_norm=rep(p.k_norm))
+    return local, per_head, split
+
+
 def _project_qkv(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, per_head: list | None = None):
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
@@ -75,8 +154,18 @@ def _project_qkv(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     if p.q_norm is not None:
         q = rms_norm(p.q_norm, q, cfg.norm_eps, False)
         k = rms_norm(p.k_norm, k, cfg.norm_eps, False)
+    k, v = _per_head(k, v, per_head)
     return rope(q, positions, cfg.rope_theta), rope(k, positions,
                                                     cfg.rope_theta), v
+
+
+def _per_head(k: torch.Tensor, v: torch.Tensor, per_head: list | None):
+    """k and v (B, S, Hkv, hd) with one KV head a local query head when
+    ``_kv_heads`` gave a map, else as they are."""
+    if per_head is None:
+        return k, v
+    idx = torch.tensor(per_head, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,7 +204,8 @@ def causal_mask(Sq: int, Sk: int, window: int | None = None,
 
 def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, window: int | None = None,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, *,
+              policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """Full-sequence attention (prefill, the encoder).
 
     Past 2 * Q_CHUNK tokens the S x S score matrix is never built: queries
@@ -123,8 +213,11 @@ def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     (window + chunk) region each block can see.  Under autograd each
     block's scores are recomputed in the backward (the reference's
     per-chunk ``jax.checkpoint``), so no layer keeps its S x S float32
-    scores."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    scores.  Under a policy, this rank's heads (module docstring)."""
+    p, per_head, split = _local_weights(p, cfg, policy)
+    if split:
+        x = parallel.copy_in(x, policy.ctx)
+    q, k, v = _project_qkv(p, cfg, x, positions, per_head)
     S = x.shape[1]
     if not causal or S <= 2 * Q_CHUNK:
         mask = causal_mask(S, S, window, x.device) if causal else None
@@ -137,7 +230,8 @@ def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
             out = _chunked_causal(zp(q), zp(k), zp(v), cfg, window)[:, :S]
         else:
             out = _chunked_causal(q, k, v, cfg, window)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
+    y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
+    return parallel.reduce_out(y, policy.ctx) if split else y
 
 
 def _chunked_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -184,11 +278,29 @@ def decode_attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype)), cache
 
 
+def cross_kv(p: AttnParams, cfg: ModelConfig, enc: torch.Tensor, *,
+             policy: ShardingPolicy = NO_SHARDING):
+    """The cross-attention keys and values of the encoder output ``enc``
+    (B, F, D): under a policy, of the KV heads this rank's query heads
+    read."""
+    p, per_head, split = _local_weights(p, cfg, policy)
+    if split:
+        enc = parallel.copy_in(enc, policy.ctx)
+    return _per_head(torch.einsum("bsd,dhk->bshk", enc, p.wk.to(enc.dtype)),
+                     torch.einsum("bsd,dhk->bshk", enc, p.wv.to(enc.dtype)),
+                     per_head)
+
+
 def cross_attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
-                    enc_kv: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
-    """Decoder -> encoder cross attention (whisper); ``enc_kv`` precomputed.
-    Long decoder sequences are q-chunked, each chunk recomputed in the
-    backward under autograd."""
+                    enc_kv: tuple[torch.Tensor, torch.Tensor], *,
+                    policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
+    """Decoder -> encoder cross attention (whisper); ``enc_kv`` precomputed
+    (``cross_kv``).  Long decoder sequences are q-chunked, each chunk
+    recomputed in the backward under autograd.  Under a policy, this rank's
+    heads, the output all-reduced over tp."""
+    p, _, split = _local_weights(p, cfg, policy)
+    if split:
+        x = parallel.copy_in(x, policy.ctx)
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
     if p.q_norm is not None:
         q = rms_norm(p.q_norm, q, cfg.norm_eps, False)
@@ -199,7 +311,8 @@ def cross_attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = torch.cat([remat(_sdpa, q[:, s:s + Q_CHUNK], k, v, None, cfg)
                          for s in range(0, Sq, Q_CHUNK)], dim=1)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
+    y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
+    return parallel.reduce_out(y, policy.ctx) if split else y
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,17 +1,184 @@
-"""Shared model substrate: configs, norms, RoPE, dense layers.
+"""Shared model substrate: configs, norms, RoPE, dense layers, sharding
+policy.
 
 The port of ``repro.models.common``.  Parameters are plain ``NamedTuple``
 trees of tensors and every layer is a function ``f(params, x, ...) -> y``.
-The reference's ``ShardingPolicy`` has no counterpart here: its GSPMD
-constraints mean nothing to one eager device, so no function takes a
-policy.
+
+``ShardingPolicy`` says how the model maps onto a ``("data", "model")``
+``DeviceMesh`` (optionally with a leading ``"pod"`` axis), with the
+reference's fields and canonical specs.  A spec is a ``P``: the
+reference's ``PartitionSpec`` written as data, one entry per dim (``None``,
+a mesh axis name, or a tuple of names).  The reference hands its specs to
+GSPMD, which places each tensor and propagates the collectives; here a
+rank holds the local shard its spec gives it, and the layers run
+Megatron-style on those shards with the explicit collectives of
+``models/parallel.py``.  ``NO_SHARDING`` (the default of every layer) is
+one device: no spec is read and no collective runs.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+
+# ---------------------------------------------------------------------------
+# Sharding policy
+# ---------------------------------------------------------------------------
+
+def _entry(e):
+    """One spec entry as JAX keeps it: a one-name tuple is the name, an
+    empty one None."""
+    if isinstance(e, (tuple, list)):
+        e = tuple(e)
+        return None if not e else e[0] if len(e) == 1 else e
+    return e
+
+
+class P(tuple):
+    """A partition spec as data: one entry per dim of the tensor, each
+    ``None`` (replicated), a mesh axis name or a tuple of names (sharded
+    over their product, the first name major).  ``P()`` replicates a
+    tensor of any rank.  Equal, entry for entry, to the reference's
+    ``PartitionSpec`` of the same dims."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(_entry(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+def entry_axes(e) -> tuple[str, ...]:
+    """The mesh axes a spec entry shards its dim over, major first."""
+    if e is None:
+        return ()
+    return (e,) if isinstance(e, str) else tuple(e)
+
+
+def axis_size(mesh, name: str) -> int:
+    """The size of ``mesh``'s axis ``name`` (a ``DeviceMesh`` or any object
+    with ``mesh_dim_names`` and ``size(dim)``)."""
+    return int(mesh.size(list(mesh.mesh_dim_names).index(name)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPolicy:
+    """How the model maps onto the mesh.
+
+    dp: data-parallel axes (batch; also the FSDP shard axis for params/opt).
+    tp: tensor-parallel axis (heads / FFN hidden / vocab / experts).
+    fsdp: shard params & optimizer over dp too (ZeRO-3 style).
+    sp: the reference keeps the saved residual stream sequence-sharded over
+        tp between layers.  Carried for parity with the reference's policy
+        (``act`` reads it) and read by no layer of the port: the port keeps
+        the residual replicated over tp whatever it says (the same values;
+        sequence parallelism is ROADMAP item 13g).
+    mesh: the ``DeviceMesh``.  ``weight_gather``: gather FSDP weights
+        before their matmuls (train and prefill; the reference turns it off
+        for decode).  The port runs no decode over a mesh (ROADMAP item
+        13f), so ``gather_fsdp`` raises when it is off.
+    """
+
+    dp: tuple[str, ...] = ()
+    tp: str | None = None
+    fsdp: bool = True
+    sp: bool = True
+    enabled: bool = False
+    mesh: Any = None
+    weight_gather: bool = True
+
+    # canonical specs -------------------------------------------------------
+    def batch(self) -> Any:
+        return tuple(self.dp) if self.dp else None
+
+    def act(self, seq_shard: bool = False) -> P:
+        """[B, S, D] activations."""
+        if seq_shard and self.sp and self.tp:
+            return P(self.batch(), self.tp, None)
+        return P(self.batch(), None, None)
+
+    def heads(self) -> P:
+        """[B, S, H, hd]."""
+        return P(self.batch(), None, self.tp, None)
+
+    def ffn(self) -> P:
+        """[B, S, F]."""
+        return P(self.batch(), None, self.tp)
+
+    def vocab_logits(self) -> P:
+        """[B, S, V]."""
+        return P(self.batch(), None, self.tp)
+
+    # param specs -----------------------------------------------------------
+    def p_embed(self) -> P:          # (V, D)
+        return P(self.tp, self._fs())
+
+    def p_attn_qkv(self) -> P:       # (D, H, hd)
+        return P(self._fs(), self.tp, None)
+
+    def p_attn_o(self) -> P:         # (H, hd, D)
+        return P(self.tp, None, self._fs())
+
+    def p_mlp_in(self) -> P:         # (D, F)
+        return P(self._fs(), self.tp)
+
+    def p_mlp_out(self) -> P:        # (F, D)
+        return P(self.tp, self._fs())
+
+    def p_moe_in(self) -> P:         # (E, D, F)
+        return P(self.tp, self._fs(), None)
+
+    def p_moe_out(self) -> P:        # (E, F, D)
+        return P(self.tp, None, self._fs())
+
+    def p_vec(self) -> P:            # (D,) norms etc.
+        return P(None)
+
+    def _fs(self):
+        return tuple(self.dp) if (self.fsdp and self.dp) else None
+
+    # conditional TP: shard a dimension over tp only when divisible ---------
+    def tp_size(self) -> int:
+        if not (self.tp and self.mesh is not None):
+            return 1
+        return axis_size(self.mesh, self.tp)
+
+    def shard_if(self, n: int):
+        """tp axis name if n divides over it, else None (replicate)."""
+        return self.tp if (self.tp and n % max(self.tp_size(), 1) == 0
+                           and n >= self.tp_size()) else None
+
+    @functools.cached_property
+    def ctx(self):
+        """This rank's ``parallel.MeshContext`` (its coordinates and the
+        process group of each mesh axis), made on first use."""
+        from .parallel import MeshContext
+        return MeshContext(self.mesh, self.tp, self.dp)
+
+    def gather_fsdp(self, w: torch.Tensor, spec: P, stored: P) -> torch.Tensor:
+        """This rank's shard ``w`` (laid out as ``stored``) materialized as
+        ``spec`` before its matmul: the FSDP (dp) shards all-gathered, and
+        any other difference between the layouts resolved
+        (``parallel.reshard``).  The backward reduce-scatters the weight's
+        gradient over dp: the reference's ZeRO-3 flow.  The reference
+        gathers only the weights GSPMD would otherwise partial-sum; the
+        port holds local shards, so every dp-sharded weight is gathered
+        before its use.  ``w`` unchanged without a mesh."""
+        if not self.enabled:
+            return w
+        if not self.weight_gather:
+            raise NotImplementedError(
+                "a policy without weight_gather is the reference's decode "
+                "over a mesh: ROADMAP item 13f, not ported")
+        from .parallel import reshard
+        return reshard(w, stored, spec, self.ctx)
+
+
+NO_SHARDING = ShardingPolicy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +317,38 @@ def tree_map(fn, tree, *rest):
         return fn(tree, *rest)
     out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
     return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+
+
+def spec_map(fn, specs):
+    """``fn`` over the ``P`` leaves of a spec tree (``None`` stays)."""
+    if specs is None:
+        return None
+    if isinstance(specs, P):
+        return fn(specs)
+    out = [spec_map(fn, s) for s in specs]
+    return type(specs)(*out) if hasattr(specs, "_fields") else tuple(out)
+
+
+def map_with_specs(fn, tree, specs):
+    """``fn(tensor, spec)`` over the tensors of ``tree`` and the ``P`` at
+    the same place in ``specs`` (a spec tree of the same structure; a spec
+    where the tree has ``None`` is skipped)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        if not isinstance(specs, P):
+            raise ValueError(f"no spec for a tensor of shape "
+                             f"{tuple(tree.shape)}: {specs!r}")
+        return fn(tree, specs)
+    out = [map_with_specs(fn, t, s) for t, s in zip(tree, specs)]
+    return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+
+
+def spec_leaves(tree, specs) -> list:
+    """The spec of each tensor of ``tree``, in ``tree_leaves`` order."""
+    out: list = []
+    map_with_specs(lambda t, s: out.append(s), tree, specs)
+    return out
 
 
 def tree_leaves(tree) -> list:

@@ -7,6 +7,12 @@ keyed by their dotted paths (``blocks.0.mixer.wq``, ``tail.1.mixer.conv_w``,
 as ``jax.tree_util.tree_flatten_with_path`` names them.  The port never
 sees a JAX type.  ``flatten`` gives the port's trees the same keys, so two
 trees compare key by key.
+
+Over a mesh, ``shard_params`` and ``shard_train_state`` take a rank's
+shards of whole trees (laid out by ``transformer.param_specs``), and
+``gather_params`` / ``gather_train_state`` all-gather a rank's shards back
+into whole trees, so a mesh run compares with the reference's one-device
+run tree by tree.
 """
 from __future__ import annotations
 
@@ -19,8 +25,8 @@ from . import attention as attn_lib
 from . import moe as moe_lib
 from . import recurrent as rec_lib
 from . import transformer as tf
-from . import zoo
-from .common import LayerSpec, ModelConfig
+from . import parallel, zoo
+from .common import LayerSpec, ModelConfig, P
 
 
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -135,14 +141,51 @@ def train_state_from_numpy(cfg: ModelConfig, arrays: dict,
 
 
 def flatten(tree, prefix: str = "") -> dict:
-    """{dotted path: tensor} of a tree of NamedTuples and tuples, with the
-    reference's keys (``None`` leaves left out)."""
+    """{dotted path: tensor} of a tree of NamedTuples and tuples (or
+    {dotted path: P} of a spec tree), with the reference's keys (``None``
+    leaves left out)."""
     if tree is None:
         return {}
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, P)):
         return {prefix: tree}
     names = tree._fields if hasattr(tree, "_fields") else range(len(tree))
     out = {}
     for name, sub in zip(names, tree):
         out.update(flatten(sub, f"{prefix}.{name}" if prefix else str(name)))
     return out
+
+
+def shard_params(params, specs, mesh, rank: int):
+    """Rank ``rank``'s shards of the whole params (or any tree laid out by
+    ``specs``) on ``mesh``: copies, so the whole tree can be freed."""
+    return parallel.shard_tree(params, specs,
+                               *parallel.mesh_coords(mesh, rank))
+
+
+def gather_params(params, specs, mesh):
+    """The whole tree of this rank's shards ``params`` (collective: every
+    rank of ``mesh`` calls it, and every rank gets the whole tree)."""
+    return parallel.gather_tree(params, specs, parallel.MeshContext(mesh))
+
+
+def shard_train_state(state: zoo.TrainState, specs, mesh,
+                      rank: int) -> zoo.TrainState:
+    """Rank ``rank``'s shards of a whole ``TrainState``: params, master, m
+    and v laid out by the param ``specs``, the step replicated."""
+    opt = state.opt
+    return zoo.TrainState(
+        shard_params(state.params, specs, mesh, rank),
+        adamw.OptState(*(shard_params(t, specs, mesh, rank)
+                         for t in (opt.master, opt.m, opt.v)),
+                       step=opt.step.clone()))
+
+
+def gather_train_state(state: zoo.TrainState, specs,
+                       mesh) -> zoo.TrainState:
+    """The whole ``TrainState`` of this rank's shards (collective)."""
+    opt = state.opt
+    return zoo.TrainState(
+        gather_params(state.params, specs, mesh),
+        adamw.OptState(*(gather_params(t, specs, mesh)
+                         for t in (opt.master, opt.m, opt.v)),
+                       step=opt.step.clone()))

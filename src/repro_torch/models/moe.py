@@ -11,9 +11,11 @@ semantics, not a fault.
 
 The top-k is a stable descending sort, not ``torch.topk``: ``lax.top_k``
 returns the lower expert id first on equal probabilities, and the order
-fixes the capacity ranks.  The reference's expert-parallel ``moe_ffn_ep``
-(a ``shard_map`` over a mesh) has no counterpart: ``moe_ffn`` dispatches
-locally.
+fixes the capacity ranks.  Over a mesh with a tp axis the reference
+dispatches to its expert-parallel ``moe_ffn_ep`` (a ``shard_map`` with an
+all-to-all over the model axis); that is ROADMAP item 13d, not ported, and
+``moe_ffn`` raises there rather than run the experts replicated (a
+different program from the reference's).
 """
 from __future__ import annotations
 
@@ -22,7 +24,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, init_dense
+from .common import NO_SHARDING, ModelConfig, P, ShardingPolicy, init_dense
+
+MESH_MOE = ("the expert-parallel MoE over a mesh (moe_ffn_ep) is ROADMAP "
+            "item 13d, not ported")
 
 
 class MoEParams(NamedTuple):
@@ -49,7 +54,18 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_ffn(p: MoEParams, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def moe_specs(cfg: ModelConfig, policy: ShardingPolicy) -> MoEParams:
+    """The specs of one layer's ``MoEParams``: experts over tp."""
+    return MoEParams(router=P(policy._fs(), None), w_gate=policy.p_moe_in(),
+                     w_up=policy.p_moe_in(), w_down=policy.p_moe_out())
+
+
+def moe_ffn(p: MoEParams, cfg: ModelConfig, x: torch.Tensor, *,
+            policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
+    """The local dispatch; over a mesh with a tp axis (the reference's
+    expert-parallel path) it raises, naming ROADMAP item 13d."""
+    if policy.enabled and policy.tp is not None and policy.mesh is not None:
+        raise NotImplementedError(MESH_MOE)
     return moe_ffn_local(p, cfg, x)
 
 

@@ -17,6 +17,21 @@ Mamba2 SSD (arXiv:2405.21060), head-parallel scalar-decay SSM:
     y_t = C_t · h_t + D * x_t
 evaluated chunkwise: an intra-chunk quadratic term plus the inter-chunk
 state carry.
+
+Under a ``ShardingPolicy`` (training over a mesh) the params are laid out
+as ``param_specs`` says.  RG-LRU is diagonal in its R channels, so it runs
+channel-parallel over tp: column-parallel ``w_in``, the conv, gates and
+scan on this rank's channels, row-parallel ``w_out`` all-reduced.  SSD
+runs head-parallel when its heads divide over tp: this rank's heads of
+``w_z``, ``w_x``, ``w_dt`` and ``w_out``, the per-head vectors sliced to
+them, and the gated RMSNorm's sum of squares all-reduced over tp (it
+spans every head).  ``w_B`` and ``w_C`` (``N`` columns, shared by every
+head) are all-gathered over tp and ``B``, ``C`` computed whole on every
+rank, so the ``C . B`` contraction needs no all-reduce; ROADMAP lists the
+N-sharded version.  When the heads do not divide, SSD is replicated over
+tp (``w_B`` and ``w_C`` still gathered); a channel split that cuts a head
+(``H * P`` divides, ``H`` does not) raises.  Decode over a mesh is not
+ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -26,7 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from .common import ModelConfig, init_dense, rms_norm
+from . import parallel
+from .common import (NO_SHARDING, P, ModelConfig, ShardingPolicy, init_dense,
+                     rms_norm)
 
 RGLRU_C = 8.0
 LRU_CHUNK = 512
@@ -123,9 +140,29 @@ def _lru_scan(a: torch.Tensor, bx: torch.Tensor,
     return torch.cat(hs, dim=1)
 
 
+def rglru_specs(cfg: ModelConfig, policy: ShardingPolicy) -> RGLRUParams:
+    """The specs of one layer's ``RGLRUParams``: the R channels over tp."""
+    tp = policy.tp
+    return RGLRUParams(
+        w_in=policy.p_mlp_in(), w_gate_a=P(tp), b_gate_a=P(tp),
+        w_gate_x=P(tp), b_gate_x=P(tp), log_lambda=P(tp),
+        conv_w=P(None, tp), conv_b=P(tp), w_out=policy.p_mlp_out())
+
+
 def rglru(p: RGLRUParams, cfg: ModelConfig, x: torch.Tensor,
-          state: RGLRUState | None = None):
-    """x: (B, S, D) -> (B, S, D), new_state."""
+          state: RGLRUState | None = None, *,
+          policy: ShardingPolicy = NO_SHARDING):
+    """x: (B, S, D) -> (B, S, D), new_state.  Under a policy, this rank's
+    channels (module docstring)."""
+    split = False
+    if policy.enabled:
+        sp, ctx = rglru_specs(cfg, policy), policy.ctx
+        p = p._replace(
+            w_in=policy.gather_fsdp(p.w_in, P(None, policy.tp), sp.w_in),
+            w_out=policy.gather_fsdp(p.w_out, P(policy.tp, None), sp.w_out))
+        split = ctx.tp_size > 1
+        if split:
+            x = parallel.copy_in(x, ctx)
     u = torch.einsum("bsd,dr->bsr", x, p.w_in.to(x.dtype))
     u, conv_tail = _causal_conv(u, p.conv_w.to(u.dtype), p.conv_b.to(u.dtype),
                                 state.conv if state is not None else None)
@@ -137,6 +174,8 @@ def rglru(p: RGLRUParams, cfg: ModelConfig, x: torch.Tensor,
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
     h = _lru_scan(a, gated, state.h if state is not None else None)
     y = torch.einsum("bsr,rd->bsd", h.to(x.dtype), p.w_out.to(x.dtype))
+    if split:
+        y = parallel.reduce_out(y, policy.ctx)
     return y, RGLRUState(h=h[:, -1], conv=conv_tail)
 
 
@@ -244,11 +283,77 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (y_intra + y_inter).reshape(B, S, H, P), h
 
 
+def ssd_specs(cfg: ModelConfig, policy: ShardingPolicy) -> SSDParams:
+    """The specs of one layer's ``SSDParams``: heads (``H * P`` channels)
+    over tp where they divide, else ``N``; the model dim over FSDP."""
+    H, Pd, N = ssd_dims(cfg)
+    fsd = policy._fs()
+    return SSDParams(
+        w_z=P(fsd, policy.shard_if(H * Pd)),
+        w_x=P(fsd, policy.shard_if(H * Pd)),
+        w_B=P(fsd, policy.shard_if(N)),
+        w_C=P(fsd, policy.shard_if(N)),
+        w_dt=P(fsd, policy.shard_if(H)),
+        log_a=P(None), d_skip=P(None),
+        dt_bias=P(None), norm_w=P(policy.shard_if(H * Pd)),
+        w_out=P(policy.shard_if(H * Pd), fsd))
+
+
+def _ssd_local(p: SSDParams, cfg: ModelConfig, policy: ShardingPolicy):
+    """This rank's heads of ``p``, FSDP-gathered, ``w_B`` / ``w_C`` whole,
+    and whether the heads are partitioned over tp."""
+    H, Pd, N = ssd_dims(cfg)
+    sp, ctx = ssd_specs(cfg, policy), policy.ctx
+    th, thp = policy.shard_if(H), policy.shard_if(H * Pd)
+    if thp is not None and th is None and ctx.tp_size > 1:
+        raise NotImplementedError(
+            f"SSD over tp = {ctx.tp_size}: its {H * Pd} channels divide and "
+            f"its {H} heads do not, so a shard would cut a head; the "
+            "channel-parallel SSD is a ROADMAP item")
+    split = th is not None and ctx.tp_size > 1
+    g = lambda w, stored, wanted: policy.gather_fsdp(  # noqa: E731
+        w, wanted, stored)
+
+    def whole(w, stored):        # N columns, read by every local head
+        w = parallel.reshard(w, stored, P(None, None), ctx, partial=split)
+        return parallel.copy_in(w, ctx) if split and \
+            policy.shard_if(N) is None else w
+
+    def heads(v):                # replicated (H,) vectors, local heads
+        return parallel.tp_slice(parallel.copy_in(v, ctx), 0, ctx) \
+            if split else v
+
+    return SSDParams(
+        w_z=g(p.w_z, sp.w_z, P(None, thp)), w_x=g(p.w_x, sp.w_x, P(None, thp)),
+        w_B=whole(p.w_B, sp.w_B), w_C=whole(p.w_C, sp.w_C),
+        w_dt=g(p.w_dt, sp.w_dt, P(None, th)), log_a=heads(p.log_a),
+        d_skip=heads(p.d_skip), dt_bias=heads(p.dt_bias), norm_w=p.norm_w,
+        w_out=g(p.w_out, sp.w_out, P(thp, None))), split
+
+
+def _gated_norm_split(w: torch.Tensor, g: torch.Tensor, eps: float,
+                      width: int, ctx) -> torch.Tensor:
+    """``rms_norm(w, g)`` over ``width`` channels of which this rank holds
+    ``g``'s: the sum of squares all-reduced over tp."""
+    gf = g.float()
+    ss = parallel.reduce_out((gf * gf).sum(-1, keepdim=True), ctx)
+    var = parallel.copy_in(ss, ctx) / width
+    return (gf * torch.rsqrt(var + eps) * w.float()).to(g.dtype)
+
+
 def ssd(p: SSDParams, cfg: ModelConfig, x: torch.Tensor,
-        state: SSDState | None = None):
-    """Mamba2 mixer.  x: (B,S,D) -> (B,S,D), new_state."""
+        state: SSDState | None = None, *,
+        policy: ShardingPolicy = NO_SHARDING):
+    """Mamba2 mixer.  x: (B,S,D) -> (B,S,D), new_state.  Under a policy,
+    this rank's heads (module docstring)."""
     B, S, D = x.shape
     H, P, N = ssd_dims(cfg)
+    width, split = H * P, False
+    if policy.enabled:
+        p, split = _ssd_local(p, cfg, policy)
+        H = p.w_dt.shape[-1]
+        if split:
+            x = parallel.copy_in(x, policy.ctx)
     z = torch.einsum("bsd,di->bsi", x, p.w_z.to(x.dtype))
     xh = torch.einsum("bsd,di->bsi", x, p.w_x.to(x.dtype))
     Bm = torch.einsum("bsd,dn->bsn", x, p.w_B.to(x.dtype))
@@ -280,8 +385,15 @@ def ssd(p: SSDParams, cfg: ModelConfig, x: torch.Tensor,
     y = y + p.d_skip[None, None, :, None] * xh[:, :S].float()
     y = y.reshape(B, S, H * P)
     # gated RMSNorm (mamba2)
-    y = rms_norm(p.norm_w, y.to(x.dtype) * F.silu(z), cfg.norm_eps, False)
+    if split:
+        y = _gated_norm_split(p.norm_w, y.to(x.dtype) * F.silu(z),
+                              cfg.norm_eps, width, policy.ctx)
+    else:
+        y = rms_norm(p.norm_w, y.to(x.dtype) * F.silu(z), cfg.norm_eps,
+                     False)
     out = torch.einsum("bsi,id->bsd", y, p.w_out.to(x.dtype))
+    if split:
+        out = parallel.reduce_out(out, policy.ctx)
     return out, SSDState(h=h_last)
 
 

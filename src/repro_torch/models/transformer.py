@@ -14,6 +14,14 @@ outside the pattern (recurrentgemma's trailing ``(R, R)``).  The
 enc-dec (whisper) and VLM (internvl2) models wrap the same decoder with
 stubbed frontends: precomputed frame or patch embeddings come in with the
 batch.
+
+Under a ``ShardingPolicy`` every function runs on this rank's shards of
+the params (``param_specs``; ``init_params`` returns them) and batch: the
+embedding and the logits vocab-parallel over tp, attention and the MLP
+Megatron-style (column-parallel in, row-parallel out, all-reduced), each
+FSDP-sharded weight gathered over dp before its use
+(``models/parallel.py``).  MoE over a mesh (expert parallelism, ROADMAP
+item 13d) and decode over a mesh (item 13f) raise.
 """
 from __future__ import annotations
 
@@ -24,10 +32,14 @@ import torch.nn.functional as F
 
 from . import attention as attn_lib
 from . import moe as moe_lib
+from . import parallel
 from . import recurrent as rec_lib
-from .common import (LayerSpec, ModelConfig, dense, init_dense, padded_vocab,
-                     remat, rms_norm, scalar, softcap, tree_map, tree_stack,
-                     tree_unstack)
+from .common import (NO_SHARDING, LayerSpec, ModelConfig, P, ShardingPolicy,
+                     dense, init_dense, padded_vocab, remat, rms_norm, scalar,
+                     softcap, spec_map, tree_map, tree_stack, tree_unstack)
+
+MESH_DECODE = ("decode and prefill over a mesh (context-parallel decode "
+               "among them) are ROADMAP item 13f, not ported")
 
 
 class MLPParams(NamedTuple):
@@ -45,8 +57,30 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator) -> MLPParams:
     )
 
 
-def mlp(p: MLPParams, x: torch.Tensor) -> torch.Tensor:
-    return dense(p.w_down, F.silu(dense(p.w_gate, x)) * dense(p.w_up, x))
+def mlp_specs(cfg: ModelConfig, policy: ShardingPolicy) -> MLPParams:
+    return MLPParams(w_gate=policy.p_mlp_in(), w_up=policy.p_mlp_in(),
+                     w_down=policy.p_mlp_out())
+
+
+def mlp(p: MLPParams, x: torch.Tensor, *,
+        policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
+    """SwiGLU.  Under a policy: column-parallel ``w_gate`` / ``w_up`` and
+    row-parallel ``w_down`` on this rank's slice of F, all-reduced."""
+    split = False
+    if policy.enabled:
+        # p_mlp_in shards F over tp outright (a shard exists only where F
+        # divides), so the reference's shard_if(F) is tp
+        tf_ = policy.tp
+        sp = mlp_specs(None, policy)
+        p = MLPParams(
+            w_gate=policy.gather_fsdp(p.w_gate, P(None, tf_), sp.w_gate),
+            w_up=policy.gather_fsdp(p.w_up, P(None, tf_), sp.w_up),
+            w_down=policy.gather_fsdp(p.w_down, P(tf_, None), sp.w_down))
+        split = tf_ is not None and policy.ctx.tp_size > 1
+        if split:
+            x = parallel.copy_in(x, policy.ctx)
+    y = dense(p.w_down, F.silu(dense(p.w_gate, x)) * dense(p.w_up, x))
+    return parallel.reduce_out(y, policy.ctx) if split else y
 
 
 class LayerParams(NamedTuple):
@@ -91,8 +125,11 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, generator: torch.Generator,
 
 def apply_layer(p: LayerParams, cfg: ModelConfig, spec: LayerSpec,
                 x: torch.Tensor, positions: torch.Tensor | None, state=None,
-                decode: bool = False, enc_kv=None):
+                decode: bool = False, enc_kv=None, *,
+                policy: ShardingPolicy = NO_SHARDING):
     """Pre-norm residual layer.  Returns (y, new_mixer_state)."""
+    if policy.enabled and (decode or state is not None):
+        raise NotImplementedError(MESH_DECODE)
     h = rms_norm(p.norm1, x, cfg.norm_eps, cfg.rms_offset)
     new_state = None
     if spec.kind in ("global", "local"):
@@ -101,19 +138,22 @@ def apply_layer(p: LayerParams, cfg: ModelConfig, spec: LayerSpec,
             a, new_state = attn_lib.decode_attention(p.mixer, cfg, h, state,
                                                      window)
         else:
-            a = attn_lib.attention(p.mixer, cfg, h, positions, window)
+            a = attn_lib.attention(p.mixer, cfg, h, positions, window,
+                                   policy=policy)
     elif spec.kind == "rglru":
-        a, new_state = rec_lib.rglru(p.mixer, cfg, h, state)
+        a, new_state = rec_lib.rglru(p.mixer, cfg, h, state,
+                                     policy=policy)
     elif spec.kind == "ssd":
-        a, new_state = rec_lib.ssd(p.mixer, cfg, h, state)
+        a, new_state = rec_lib.ssd(p.mixer, cfg, h, state, policy=policy)
     x = x + a
     if p.cross is not None and enc_kv is not None:
         h = rms_norm(p.norm_c, x, cfg.norm_eps, cfg.rms_offset)
-        x = x + attn_lib.cross_attention(p.cross, cfg, h, enc_kv)
+        x = x + attn_lib.cross_attention(p.cross, cfg, h, enc_kv,
+                                         policy=policy)
     if p.ffn is not None:
         h = rms_norm(p.norm2, x, cfg.norm_eps, cfg.rms_offset)
-        x = x + (moe_lib.moe_ffn(p.ffn, cfg, h) if cfg.is_moe
-                 else mlp(p.ffn, h))
+        x = x + (moe_lib.moe_ffn(p.ffn, cfg, h, policy=policy) if cfg.is_moe
+                 else mlp(p.ffn, h, policy=policy))
     return x, new_state
 
 
@@ -127,10 +167,17 @@ class ModelParams(NamedTuple):
     tail: Any = None                 # layers after the pattern (cfg.tail)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> ModelParams:
+def init_params(cfg: ModelConfig, generator: torch.Generator, *,
+                policy: ShardingPolicy = NO_SHARDING) -> ModelParams:
     """Random weights drawn from ``generator`` on its device, in the
     reference's distributions (its draws differ: weights cross between the
-    packages through ``convert.params_from_numpy``)."""
+    packages through ``convert.params_from_numpy``).  Under a policy, this
+    rank's shards of them (``param_specs``): every rank draws the whole
+    model from the same seed and keeps its slices."""
+    if policy.enabled:
+        full = init_params(cfg, generator)
+        return parallel.shard_tree(full, param_specs(cfg, policy),
+                                   policy.ctx.coord, policy.ctx.size)
     g, dev = generator, generator.device
     has_cross = cfg.encoder_layers > 0
     blocks = tuple(
@@ -158,68 +205,146 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> ModelParams:
         encoder=encoder, enc_proj=enc_proj, tail=tail)
 
 
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> ModelParams:
+    """The ``P`` tree matching ``init_params``, leaf by leaf as the
+    reference's ``transformer.param_specs``: the stacked blocks' specs lead
+    with ``None`` (their block axis); a leaf absent from the params (a bias
+    without ``qkv_bias``) still has its spec."""
+
+    def mixer_spec(spec: LayerSpec):
+        if spec.kind in ("global", "local"):
+            return attn_lib.param_specs(cfg, policy)
+        if spec.kind == "rglru":
+            return rec_lib.rglru_specs(cfg, policy)
+        if spec.kind == "ssd":
+            return rec_lib.ssd_specs(cfg, policy)
+        raise ValueError(spec.kind)
+
+    def ffn_spec():
+        if cfg.is_moe:
+            return moe_lib.moe_specs(cfg, policy)
+        if cfg.d_ff > 0:
+            return mlp_specs(cfg, policy)
+        return None
+
+    def layer_spec(spec: LayerSpec, cross: bool = False):
+        return LayerParams(norm1=P(None), mixer=mixer_spec(spec),
+                           norm2=P(None), ffn=ffn_spec(),
+                           cross=attn_lib.param_specs(cfg, policy)
+                           if cross else None,
+                           norm_c=P(None) if cross else None)
+
+    def stacked(tree):
+        """blocks carry a leading (num_blocks,) axis: prepend None."""
+        return spec_map(lambda sp: P(None, *sp), tree)
+
+    cross = cfg.encoder_layers > 0
+    enc = None
+    if cfg.encoder_layers:
+        enc = (stacked(layer_spec(LayerSpec("global"))), P(None))
+    return ModelParams(
+        embed=policy.p_embed(),
+        blocks=tuple(stacked(layer_spec(s, cross)) for s in cfg.pattern),
+        final_norm=P(None),
+        unembed=(None if cfg.tie_embeddings else policy.p_embed()),
+        encoder=enc,
+        enc_proj=(P(None, None) if cfg.vision_tokens else None),
+        tail=(tuple(layer_spec(s, cross) for s in cfg.tail)
+              if cfg.tail else None),
+    )
+
+
 def block(tree, b: int):
     """Block ``b`` of a stacked per-slot tree (views, no copies)."""
     return tree_map(lambda a: a[b], tree)
 
 
-def enc_kv(lp: LayerParams, enc: torch.Tensor | None):
+def enc_kv(lp: LayerParams, enc: torch.Tensor | None, cfg=None, *,
+           policy: ShardingPolicy = NO_SHARDING):
     """A decoder layer's cross-attention keys and values of the encoder
-    output ``enc`` (B, F, D); None without an encoder."""
+    output ``enc`` (B, F, D); None without an encoder.  Under a policy
+    (``cfg`` then given), those of this rank's heads."""
     if enc is None or lp.cross is None:
         return None
-    return (torch.einsum("bsd,dhk->bshk", enc, lp.cross.wk.to(enc.dtype)),
-            torch.einsum("bsd,dhk->bshk", enc, lp.cross.wv.to(enc.dtype)))
+    return attn_lib.cross_kv(lp.cross, cfg, enc, policy=policy)
 
 
 def _block_body(x: torch.Tensor, slot_params: tuple, cfg: ModelConfig,
-                positions: torch.Tensor,
-                enc: torch.Tensor | None) -> torch.Tensor:
+                positions: torch.Tensor, enc: torch.Tensor | None,
+                policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """One repetition of ``cfg.pattern``: each slot's layer in turn."""
     for lp, spec in zip(slot_params, cfg.pattern):
         x, _ = apply_layer(lp, cfg, spec, x, positions,
-                           enc_kv=enc_kv(lp, enc))
+                           enc_kv=enc_kv(lp, enc, cfg, policy=policy),
+                           policy=policy)
     return x
 
 
 def _scan_blocks(params: ModelParams, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor,
-                 enc: torch.Tensor | None = None) -> torch.Tensor:
+                 positions: torch.Tensor, enc: torch.Tensor | None = None,
+                 policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     slots = [tree_unstack(p, cfg.num_blocks) for p in params.blocks]
     for slot_params in zip(*slots):
-        x = remat(_block_body, x, slot_params, cfg, positions, enc)
+        x = remat(_block_body, x, slot_params, cfg, positions, enc, policy)
     if params.tail is not None:
         for lp, spec in zip(params.tail, cfg.tail):
             x, _ = apply_layer(lp, cfg, spec, x, positions,
-                               enc_kv=enc_kv(lp, enc))
+                               enc_kv=enc_kv(lp, enc, cfg, policy=policy),
+                               policy=policy)
     return x
 
 
-def embed_tokens(params: ModelParams, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    x = params.embed[tokens].to(cfg.dtype)
+def embed_tokens(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor,
+                 *, policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
+    """``embed[tokens] * sqrt(D)``; under a policy the table's rows are
+    sharded over tp (``parallel.vocab_embed``)."""
+    if policy.enabled:
+        w = policy.gather_fsdp(params.embed, P(policy.tp, None),
+                               policy.p_embed())
+        x = parallel.vocab_embed(w, tokens, policy.ctx).to(cfg.dtype)
+    else:
+        x = params.embed[tokens].to(cfg.dtype)
     return x * scalar(x, cfg.d_model ** 0.5)
 
 
-def lm_logits(params: ModelParams, cfg: ModelConfig,
-              x: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: ModelParams, cfg: ModelConfig, x: torch.Tensor, *,
+              policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
+    """The (B, S, V) logits, the padded slots -1e9; under a policy, this
+    rank's block of the vocabulary (tp-sharded, in tp-rank order)."""
     x = rms_norm(params.final_norm, x, cfg.norm_eps, cfg.rms_offset)
     vp = padded_vocab(cfg.vocab_size)
-    w = params.embed.T if params.unembed is None else params.unembed
+    lo = 0
+    if policy.enabled:
+        tv = policy.shard_if(vp)
+        if tv is None and policy.ctx.tp_size > 1:
+            raise ValueError(f"the padded vocabulary {vp} does not divide "
+                             f"over tp = {policy.ctx.tp_size}")
+        if params.unembed is None:
+            w = policy.gather_fsdp(params.embed, P(tv, None),
+                                   policy.p_embed()).T
+        else:
+            w = policy.gather_fsdp(params.unembed, P(None, tv),
+                                   policy.p_embed())
+        x = parallel.copy_in(x, policy.ctx)
+        lo = policy.ctx.tp_rank * w.shape[1]
+    else:
+        w = params.embed.T if params.unembed is None else params.unembed
     logits = softcap(torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)),
                      cfg.logit_softcap)
     if vp != cfg.vocab_size:  # mask the padded slots exactly
-        valid = torch.arange(vp, device=x.device) < cfg.vocab_size
+        valid = torch.arange(lo, lo + logits.shape[-1],
+                             device=x.device) < cfg.vocab_size
         logits = torch.where(valid, logits, scalar(logits, -1e9))
     return logits
 
 
 def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor,
             extra_embeds: torch.Tensor | None = None,
-            encoder_out: torch.Tensor | None = None) -> torch.Tensor:
+            encoder_out: torch.Tensor | None = None, *,
+            policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """tokens (B, S) -> final hidden (B, S, D).  ``extra_embeds`` is the VLM
     patch-embedding prefix (stubbed frontend)."""
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, policy=policy)
     if extra_embeds is not None:
         pfx = extra_embeds.to(cfg.dtype)
         if params.enc_proj is not None:
@@ -228,11 +353,12 @@ def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor,
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    return _scan_blocks(params, cfg, x, positions, enc=encoder_out)
+    return _scan_blocks(params, cfg, x, positions, enc=encoder_out,
+                        policy=policy)
 
 
-def encode(params: ModelParams, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(params: ModelParams, cfg: ModelConfig, frames: torch.Tensor, *,
+           policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """Whisper encoder over stubbed conv-frontend frame embeddings (B,F,D);
     its layers are non-causal."""
     enc_blocks, enc_norm = params.encoder
@@ -241,14 +367,15 @@ def encode(params: ModelParams, cfg: ModelConfig,
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     for lp in tree_unstack(enc_blocks, cfg.encoder_layers):
-        x = remat(_encoder_layer, x, lp, cfg, positions)
+        x = remat(_encoder_layer, x, lp, cfg, positions, policy)
     return rms_norm(enc_norm, x, cfg.norm_eps, cfg.rms_offset)
 
 
 def _encoder_layer(x: torch.Tensor, lp: LayerParams, cfg: ModelConfig,
-                   positions: torch.Tensor) -> torch.Tensor:
+                   positions: torch.Tensor,
+                   policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     h = rms_norm(lp.norm1, x, cfg.norm_eps, cfg.rms_offset)
     x = x + attn_lib.attention(lp.mixer, cfg, h, positions, window=None,
-                               causal=False)
+                               causal=False, policy=policy)
     h = rms_norm(lp.norm2, x, cfg.norm_eps, cfg.rms_offset)
-    return x + mlp(lp.ffn, h)
+    return x + mlp(lp.ffn, h, policy=policy)

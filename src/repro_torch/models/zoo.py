@@ -11,8 +11,18 @@ recurrent states for rglru/ssd, a full cache for global attention);
 every stream of the batch shares one position, as in the reference.  The
 state's tensors are updated in place (the reference donates them to its
 jitted step) and the returned ``DecodeState`` holds them with the
-position advanced.  The mesh's ``decode_state_specs`` is not ported (it
-is a GSPMD partition spec).
+position advanced.  The serving steps run under ``torch.no_grad()``: the
+reference never differentiates them, and params trained in the same
+process would otherwise write autograd graphs into the caches (fault F5).
+
+Under a ``ShardingPolicy`` the training path runs over a mesh on this
+rank's shards (``transformer``): the loss is this rank's share of the
+global mean (its batch rows over the dp axes) reduced over dp, the
+gradients come out as this rank's shards of the global gradient (the dp
+reduce-scatters in the backward, an all-reduce over dp of the leaves
+replicated there), and the optimizer keeps the param specs (ZeRO-3).
+``decode_state_specs`` is the reference's table of decode-state specs; no
+entry point runs decode over a mesh yet (ROADMAP item 13f).
 """
 from __future__ import annotations
 
@@ -23,9 +33,11 @@ import torch
 from ..device import resolve_device
 from ..optim import adamw
 from . import attention as attn_lib
+from . import parallel
 from . import recurrent as rec_lib
 from . import transformer as tf
-from .common import (LayerSpec, ModelConfig, remat, tree_leaves, tree_map,
+from .common import (NO_SHARDING, LayerSpec, ModelConfig, P, ShardingPolicy,
+                     entry_axes, remat, spec_leaves, tree_leaves, tree_map,
                      tree_stack)
 
 LOSS_SEQ_CHUNK = 1024  # CE evaluated in seq chunks to bound logits memory
@@ -36,29 +48,37 @@ LOSS_SEQ_CHUNK = 1024  # CE evaluated in seq chunks to bound logits memory
 # ---------------------------------------------------------------------------
 
 def _ce_chunk(params: tf.ModelParams, cfg: ModelConfig, h: torch.Tensor,
-              labels: torch.Tensor) -> torch.Tensor:
+              labels: torch.Tensor,
+              policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """Per-token CE of one chunk.  The reference extracts the gold logit
     with a one-hot contraction for GSPMD's vocab sharding; on one device a
     gather gives the same value bit for bit (every other term of the
     one-hot sum is an exact 0) and the same gradient, without a (B, C, V)
-    float32 one-hot."""
-    logits = tf.lm_logits(params, cfg, h).float()
+    float32 one-hot.  Under a policy the logits are this rank's vocabulary
+    block (``parallel.vocab_cross_entropy``)."""
+    logits = tf.lm_logits(params, cfg, h, policy=policy).float()
+    if policy.enabled:
+        return parallel.vocab_cross_entropy(logits, labels, policy.ctx)
     m = logits.max(dim=-1, keepdim=True).values.detach()
     logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
     gold = logits.gather(-1, labels[..., None].long())[..., 0]
     return logz - gold
 
 
-def loss_fn(params: tf.ModelParams, cfg: ModelConfig,
-            batch: dict) -> torch.Tensor:
+def loss_fn(params: tf.ModelParams, cfg: ModelConfig, batch: dict, *,
+            policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """Mean next-token cross entropy.  batch: dict(tokens, labels[, frames,
-    patches])."""
+    patches]).  Under a policy, ``params`` and ``batch`` are this rank's
+    shards (its rows of the global batch over the dp axes) and the value is
+    the global mean on every rank: this rank's mean over its rows / |dp|,
+    summed over dp (the backward of the sum is the identity, so each rank
+    differentiates its own share)."""
     enc = None
     if cfg.encoder_layers:
-        enc = tf.encode(params, cfg, batch["frames"])
+        enc = tf.encode(params, cfg, batch["frames"], policy=policy)
     patches = batch.get("patches")
     h = tf.forward(params, cfg, batch["tokens"], extra_embeds=patches,
-                   encoder_out=enc)
+                   encoder_out=enc, policy=policy)
     labels = batch["labels"]
     if patches is not None:
         h = h[:, patches.shape[1]:]     # loss on text positions only
@@ -67,8 +87,12 @@ def loss_fn(params: tf.ModelParams, cfg: ModelConfig,
     if S % C:
         C = S
     per_chunk = [remat(_ce_chunk, params, cfg, h[:, i:i + C],
-                       labels[:, i:i + C]) for i in range(0, S, C)]
-    return torch.stack(per_chunk).mean()
+                       labels[:, i:i + C], policy) for i in range(0, S, C)]
+    loss = torch.stack(per_chunk).mean()
+    if policy.enabled and policy.ctx.dp_size > 1:
+        loss = parallel.reduce_out(loss / policy.ctx.dp_size, policy.ctx,
+                                   axes=policy.dp)
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -81,54 +105,77 @@ class TrainState(NamedTuple):
 
 
 def loss_and_grads(params: tf.ModelParams, cfg: ModelConfig, batch: dict,
-                   micro_batches: int = 1):
+                   micro_batches: int = 1, *,
+                   policy: ShardingPolicy = NO_SHARDING, specs=None):
     """(mean loss, grads as a tree like ``params``).  ``micro_batches`` > 1
     splits the batch's leading axis into that many micro-batches and sums
     their gradients in float32, then divides by the count (the reference's
-    gradient-accumulation scan).  Marks the params' leaves as requiring
-    grad."""
+    gradient-accumulation scan).  The params' leaves require grad while it
+    runs and get their own ``requires_grad`` back on exit.  Under a policy
+    the grads are this rank's shards of the global gradient: a leaf
+    replicated over the dp axes has its gradient all-reduced over them
+    (``specs``: ``tf.param_specs(cfg, policy)``, made here when not
+    given)."""
     leaves = tree_leaves(params)
+    was = [p.requires_grad for p in leaves]
     for p in leaves:
         p.requires_grad_(True)
 
     def one(b):
-        loss = loss_fn(params, cfg, b)
+        loss = loss_fn(params, cfg, b, policy=policy)
         return loss.detach(), torch.autograd.grad(
             loss, leaves, allow_unused=True, materialize_grads=True)
 
-    if micro_batches == 1:
-        loss, flat = one(batch)
-    else:
-        u = micro_batches
-        flat = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in leaves]
-        loss = 0.0
-        for i in range(u):
-            micro = {k: v.reshape(u, v.shape[0] // u, *v.shape[1:])[i]
-                     for k, v in batch.items() if v is not None}
-            l_i, g_i = one(micro)
-            for acc, g in zip(flat, g_i):
-                acc.add_(g)
-            loss = loss + l_i
-        for acc in flat:
-            acc.div_(u)
-        loss = loss / u
+    try:
+        if micro_batches == 1:
+            loss, flat = one(batch)
+        else:
+            u = micro_batches
+            flat = [torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device) for p in leaves]
+            loss = 0.0
+            for i in range(u):
+                micro = {k: v.reshape(u, v.shape[0] // u, *v.shape[1:])[i]
+                         for k, v in batch.items() if v is not None}
+                l_i, g_i = one(micro)
+                for acc, g in zip(flat, g_i):
+                    acc.add_(g)
+                loss = loss + l_i
+            for acc in flat:
+                acc.div_(u)
+            loss = loss / u
+    finally:
+        for p, w in zip(leaves, was):
+            p.requires_grad_(w)
+    if policy.enabled and policy.ctx.dp_size > 1:
+        if specs is None:
+            specs = tf.param_specs(cfg, policy)
+        for g, sp in zip(flat, spec_leaves(params, specs)):
+            held = {a for e in sp for a in entry_axes(e)}
+            parallel.all_reduce_(g, [a for a in policy.dp if a not in held],
+                                 policy.ctx)
     it = iter(flat)
     return loss, tree_map(lambda _: next(it), params)
 
 
 def make_train_step(cfg: ModelConfig,
                     opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
-                    micro_batches: int = 1):
+                    micro_batches: int = 1, *,
+                    policy: ShardingPolicy = NO_SHARDING):
     """``train_step(state, batch) -> (state, {"loss", "grad_norm"})``: one
     forward and backward (``loss_and_grads``), then ``adamw.apply``.  The
     state's tensors are updated in place; the returned ``TrainState`` holds
-    them."""
+    them.  Under a policy, ``state`` and ``batch`` are this rank's shards
+    (``convert.shard_train_state``, the dp rows of the batch) and the
+    metrics are global."""
+    specs = tf.param_specs(cfg, policy) if policy.enabled else None
 
     def train_step(state: TrainState, batch: dict):
-        loss, grads = loss_and_grads(state.params, cfg, batch, micro_batches)
+        loss, grads = loss_and_grads(state.params, cfg, batch, micro_batches,
+                                     policy=policy, specs=specs)
         params, opt, gnorm = adamw.apply(opt_cfg, grads, state.opt,
-                                         state.params)
+                                         state.params, policy=policy,
+                                         specs=specs)
         return TrainState(params, opt), {"loss": loss, "grad_norm": gnorm}
 
     return train_step
@@ -209,6 +256,47 @@ def cross_kv_from_encoder(params: tf.ModelParams, cfg: ModelConfig,
     return tuple(a.to(dtype or a.dtype) for a in out)
 
 
+def decode_state_specs(cfg: ModelConfig, policy: ShardingPolicy
+                       ) -> DecodeState:
+    """The ``P`` tree of a ``DecodeState``, as the reference's table:
+    caches sharded by batch over dp and KV heads over tp, or by slot over
+    tp when the KV heads do not divide (context parallelism); recurrent
+    state channels over tp where they divide."""
+    b = policy.batch()
+    tkv = policy.shard_if(cfg.num_kv_heads)
+    tw = None if tkv is not None else policy.tp
+
+    def ssd_h(lead):
+        H, _, N = rec_lib.ssd_dims(cfg)
+        th = policy.shard_if(H)
+        return rec_lib.SSDState(h=P(*lead, b, th, None,
+                                    policy.shard_if(N) if th is None
+                                    else None))
+
+    def one(spec: LayerSpec, lead: tuple):
+        if spec.kind in ("global", "local"):
+            return attn_lib.KVCache(
+                k=P(*lead, b, tw, tkv, None), v=P(*lead, b, tw, tkv, None),
+                pos=P(*lead, tw), length=P(*lead))
+        if spec.kind == "rglru":
+            tr = policy.shard_if(cfg.rglru_width)
+            return rec_lib.RGLRUState(h=P(*lead, b, tr),
+                                      conv=P(*lead, b, None, tr))
+        if spec.kind == "ssd":
+            return ssd_h(lead)
+        raise ValueError(spec.kind)
+
+    ckv = None
+    if cfg.encoder_layers:
+        ckv = tuple(P(None, b, None, tkv, None)
+                    for _ in range(2 * len(cfg.pattern)))
+    return DecodeState(
+        layer_states=tuple(one(sp, (None,)) for sp in cfg.pattern),
+        position=P(), cross_kv=ckv,
+        tail_states=(tuple(one(sp, ()) for sp in cfg.tail)
+                     if cfg.tail else None))
+
+
 def _store(state, new) -> None:
     """Write a layer's new recurrent state into its slice of the stacked
     state.  A KV cache was written in place by ``decode_attention``."""
@@ -220,8 +308,9 @@ def _store(state, new) -> None:
 
 def make_decode_step(cfg: ModelConfig):
     """One-token decode: (params, DecodeState, token (B,1)) -> (logits,
-    state)."""
+    state), recording no autograd graph."""
 
+    @torch.no_grad()
     def decode_step(params: tf.ModelParams, state: DecodeState,
                     token: torch.Tensor):
         x = tf.embed_tokens(params, cfg, token)
@@ -246,9 +335,10 @@ def make_decode_step(cfg: ModelConfig):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """Full-sequence forward; returns last-position logits.  ``batch``:
-    dict(tokens[, frames, patches])."""
+    """Full-sequence forward; returns last-position logits (no autograd
+    graph).  ``batch``: dict(tokens[, frames, patches])."""
 
+    @torch.no_grad()
     def prefill_step(params: tf.ModelParams, batch) -> torch.Tensor:
         enc = None
         if cfg.encoder_layers:

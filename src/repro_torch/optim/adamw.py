@@ -13,6 +13,14 @@ every update is in place, one block of a leaf at a time (``_blocks``: at
 most ``BLOCK_ELEMS`` elements, a stacked leaf's layer or a run of rows),
 and the temporaries are a block's.  ``step``, the schedule and the norm
 stay tensors on the device: a step never waits for the host.
+
+Over a mesh (``policy`` and the param ``specs``) master, m and v are this
+rank's shards, laid out as the params (ZeRO-3 over data and model): the
+update is elementwise on them.  The global gradient norm sums the squares
+of each distinct element once: a leaf's shard counts on the ranks at
+coordinate 0 of every mesh axis its spec does not shard over (a leaf
+replicated over tp, such as the norms, counts once, not tp times), and
+the sum is all-reduced over every axis.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..models.common import tree_leaves, tree_map
+from ..models.common import (NO_SHARDING, ShardingPolicy, entry_axes,
+                             spec_leaves, tree_leaves, tree_map)
 
 BLOCK_ELEMS = 1 << 25      # 128 MB of float32 temporaries a block at most
 
@@ -69,22 +78,49 @@ def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(grads: list) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in float32."""
+def global_norm(grads: list, owned: list | None = None,
+                ctx=None) -> torch.Tensor:
+    """sqrt of the sum of every gradient's squares, in float32.  Over a
+    mesh (``ctx``), of the leaves this rank ``owned`` (one flag a leaf),
+    summed over every mesh axis."""
+    owned = owned or [True] * len(grads)
     norms = [torch.linalg.vector_norm(b, dtype=torch.float32)
-             for g in grads for b in _blocks(g)]
-    return torch.stack(norms).square().sum().sqrt()
+             for g, mine in zip(grads, owned) if mine for b in _blocks(g)]
+    first = grads[0]
+    sq = (torch.stack(norms).square().sum() if norms else
+          torch.zeros((), dtype=torch.float32, device=first.device))
+    if ctx is not None:
+        from ..models import parallel
+        parallel.all_reduce_(sq, ctx.names, ctx)
+    return sq.sqrt()
+
+
+def _owned(grads: Any, specs: Any, ctx) -> list:
+    """Per leaf, whether this rank counts it in the norm: it sits at
+    coordinate 0 of every mesh axis the leaf's spec replicates it over."""
+    out = []
+    for sp in spec_leaves(grads, specs):
+        held = {a for e in sp for a in entry_axes(e)}
+        out.append(all(ctx.coord[a] == 0 for a in ctx.names
+                       if a not in held))
+    return out
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, grads: Any, opt: OptState, params: Any):
+def apply(cfg: AdamWConfig, grads: Any, opt: OptState, params: Any, *,
+          policy: ShardingPolicy = NO_SHARDING, specs: Any = None):
     """One AdamW step.  Updates ``params`` and ``opt`` in place and returns
     ``(params, opt, grad_norm)``: the same trees, ``opt.step`` advanced,
-    the norm a 0-d float32 tensor."""
+    the norm a 0-d float32 tensor.  Over a mesh, ``specs`` is the params'
+    spec tree and every tree holds this rank's shards."""
     trees = [tree_leaves(t) for t in (grads, opt.m, opt.v, opt.master, params)]
     if len({len(t) for t in trees}) != 1:
         raise ValueError("grads, opt state and params differ in structure")
-    gnorm = global_norm(trees[0])
+    if policy.enabled:
+        gnorm = global_norm(trees[0], _owned(grads, specs, policy.ctx),
+                            policy.ctx)
+    else:
+        gnorm = global_norm(trees[0])
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     opt.step.add_(1)
     step = opt.step.float()

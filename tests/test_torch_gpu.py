@@ -3,9 +3,9 @@ against their plain PyTorch versions on the card, the wrappers' input checks,
 the engine and the trainer running through the kernels, V-sharded serving
 through K3 (shards on one card, and across cards where there are two), and
 training over a one-rank NCCL group (spawned, never in the test's process),
-and the LM zoo's smoke architectures (serving and training), its serving
-and training launchers and the prefetching loader.  Skipped without
-a card.  This file imports no JAX, so it runs on a machine that has only
+and the LM zoo's smoke architectures (serving and training, on one device
+and over a one-rank NCCL (1, 1) mesh), its serving and training launchers
+and the prefetching loader.  Skipped without a card.  This file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -954,3 +954,40 @@ def test_lm_train_launcher_on_cuda(dev, capsys):
                        "10"]) == 0
     out = capsys.readouterr().out
     assert "step 10: loss" in out and "on cuda:0" in out
+
+
+def _lm_mesh_rank(rank, out_path):
+    """One NCCL rank on a (1, 1) ("data", "model") mesh: chip_smoke's
+    phase-25 check of every non-MoE smoke arch (two mesh train steps
+    against two one-device steps on the card)."""
+    import pathlib
+    import sys
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.archs import ARCHS
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    rows = [chip_smoke.mesh_arch_vs_card(n, mesh, dev) for n in sorted(ARCHS)
+            if not ARCHS[n].is_moe]
+    torch.save(rows, out_path)
+
+
+def test_lm_mesh_step_on_one_nccl_rank(dev, tmp_path):
+    """The LM zoo's mesh train step through NCCL collectives' code path on
+    one rank: within the one-device step's bounds (loss 1e-5, grad norm
+    1e-4 relative, state 2 lr_t + 1e-6), step exact."""
+    from repro_torch.distributed import launch
+
+    out = tmp_path / "rows.pt"
+    launch.spawn(_lm_mesh_rank, 1, args=(str(out),), device_type="cuda",
+                 store_dir=str(tmp_path))
+    rows = torch.load(out)
+    assert len(rows) == 8
+    for r in rows:
+        assert r["finite"] and r["steps_equal"] and r["state_within_bound"]
+        assert r["loss_rel_err"] <= 1e-5 and r["grad_norm_rel_err"] <= 1e-4
