@@ -165,13 +165,20 @@ from ``launch/specs.make_policy``, tensor parallelism and ZeRO-3 through
 ``models/parallel.py``; no kernel of the port's own):
 
 25. one NCCL rank met through a ``file://`` store, a (1, 1) mesh: every
-    non-MoE architecture at its ``smoke()`` width in float32 (TF32 off),
-    two mesh ``train_step``s (state sharded, gathered back after each)
+    architecture at its ``smoke()`` width in float32 (TF32 off; the MoE
+    archs through their expert-parallel path, ``moe.moe_ffn_ep``), two
+    mesh ``train_step``s (state sharded, gathered back after each)
     against two one-device steps on the card from the same weights and
     batch; then qwen3-4b at full width (bf16 params, float32 AdamW),
     B = 1, S = 4096 on ``lm_batches`` (phase 23's stream), 4 mesh steps:
     ms a step (CUDA events over the last 3), tokens/s, ``mfu``, peak
-    bytes, the losses beside phase 23's first four.  With four cards or
+    bytes, the losses beside phase 23's first four; then the same for
+    qwen3-moe-30b-a3b at its published widths cut to MOE_LAYERS_ONE
+    layers (``mfu`` of the reference's count, active parameters), with the
+    share of (token, k) routings its capacity dropped in the first step
+    and one more step under ``torch.profiler`` (busy share, top kernels).
+    ``python3 kernel_probe.py --lm-moe-four`` runs the MoE on four cards.
+    With four cards or
     more (``lm_mesh_four``; ``python3 kernel_probe.py --lm-mesh-four``
     runs phases 23 and 25 alone, then a planted fault), 4 spawned NCCL
     ranks train qwen3-4b at full width on a (1, 4) mesh
@@ -242,7 +249,8 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
 * LM training over a mesh: every smoke arch's two mesh steps within the
   same bounds of the one-device steps on the card; qwen3-4b's mesh losses
   finite and within 1e-5 relative of phase 23's first four (the (1, 1)
-  mesh runs phase 23's arithmetic); on four cards every configuration's
+  mesh runs phase 23's arithmetic); the MoE's losses and grad norms
+  finite; on four cards every configuration's
   losses finite, and the (1, 4) mesh's B = 1 losses within 1e-3 relative
   of the (1, 1) mesh's (the same batches; bf16 sums in another order
   differ by 1.8e-4, a dropped tp all-reduce by more than the bound: see
@@ -253,6 +261,7 @@ checkout of the repository, or when any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -317,6 +326,10 @@ MESH_LM_STEPS = 4              # the first warms up, the other 3 are timed
 MESH_LM_FOUR = (("production", 1), ("production", 4), ("launcher", 2))
 MESH_FOUR_LOSS_REL = 1e-3      # (1, 4) at B = 1 against one card's losses
 MESH_COLLECTIVE_TIMEOUT_S = 180  # a rank stuck this long fails the phase
+MOE_ARCH = "qwen3-moe-30b-a3b"   # at its published widths, depth cut:
+MOE_LAYERS_ONE = 6               # 4.05B parameters, 64.9 GB of state
+MOE_LAYERS_FOUR = 16             # 10.28B parameters, 41.1 GB a card of 4
+STATE_BYTES_PER_PARAM = 16       # bf16 params and grads, float32 master, m, v
 
 BATCH, BUCKETS, SWEEPS = 32, (32, 64, 128, 256), (8, 4)
 SERVE_DOCS, SWAP_DOCS = 256, 32
@@ -1792,42 +1805,78 @@ def mesh_arch_vs_card(name: str, mesh, dev) -> dict:
                 steps_equal=steps_equal, finite=finite)
 
 
-def mesh_step_nccl_ms(prof) -> float | None:
-    """The device time of a profiled window's NCCL kernels, or None when
-    the trace holds no device time."""
+def mesh_step_nccl_ms(prof, name: str = "") -> float | None:
+    """The device time of a profiled window's NCCL kernels (those whose
+    name holds ``name`` when given: "SendRecv" is the all-to-all), or None
+    when the trace holds no device time."""
     from torch.autograd import DeviceType
 
     ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-          and "nccl" in e.name.lower()]
+          and "nccl" in e.name.lower() and name in e.name]
     if not any(e.device_type == DeviceType.CUDA for e in prof.events()):
         return None
     return sum(e.time_range.elapsed_us() for e in ev) / 1e3
 
 
+def moe_config(layers: int):
+    """``MOE_ARCH`` at its published widths, cut to ``layers`` layers."""
+    import dataclasses
+
+    from repro_torch.configs.archs import ARCHS
+
+    return dataclasses.replace(ARCHS[MOE_ARCH], num_layers=layers)
+
+
+@contextlib.contextmanager
+def counting_routes():
+    """``moe.route`` wrapped to add up, on the device, the (token, k)
+    routings it makes and those it keeps: yields [kept, made] (tensors
+    once a route ran; no host sync)."""
+    from repro_torch.models import moe
+
+    real, tally = moe.route, [0, 0]
+
+    def route(*args):
+        r = real(*args)
+        tally[0] = tally[0] + r.keep.sum()
+        tally[1] = tally[1] + r.keep.numel()
+        return r
+
+    moe.route = route
+    try:
+        yield tally
+    finally:
+        moe.route = real
+
+
 def qwen_mesh_steps(mesh, batch: int, steps: int, dev,
-                    profiled: bool = False) -> dict:
-    """qwen3-4b at full width over ``mesh`` on this rank: this rank's
-    shards drawn from the seed (``init_params`` under the policy), ``steps``
-    mesh train steps on ``lm_batches(vocab, batch, 4096)`` (this rank's
-    dp rows), the first a warm-up and the rest between CUDA events; this
-    card's peak bytes; then one more step on every rank (its collectives
-    need them all), under ``torch.profiler`` where ``profiled`` (busy
-    share, NCCL kernel time).  Everything is freed at the end."""
+                    profiled: bool = False, cfg=None) -> dict:
+    """qwen3-4b at full width (or ``cfg``) over ``mesh`` on this rank:
+    this rank's shards drawn from the seed (``init_params`` under the
+    policy), ``steps`` mesh train steps on ``lm_batches(vocab, batch,
+    4096)`` (this rank's dp rows), the first a warm-up and the rest between
+    CUDA events; this card's peak bytes; then one more step on every rank
+    (its collectives need them all), under ``torch.profiler`` where
+    ``profiled`` (busy share, NCCL kernel time, the all-to-all's apart).
+    An MoE config also counts the routings its capacity drops in the
+    warm-up step, and its ``mfu`` counts the reference's model FLOPs
+    (active parameters).  Everything is freed at the end."""
     import contextlib
 
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.archs import QWEN3_4B as cfg
+    from repro_torch.configs.archs import QWEN3_4B
     from repro_torch.data.loader import PrefetchLoader, lm_batches
     from repro_torch.launch import roofline
-    from repro_torch.launch.specs import make_policy
+    from repro_torch.launch.specs import make_policy, meta_params
     from repro_torch.models import parallel, zoo
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import tree_leaves
     from repro_torch.optim import adamw
 
+    cfg = cfg or QWEN3_4B
     world = dist.get_world_size()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1849,7 +1898,9 @@ def qwen_mesh_steps(mesh, batch: int, steps: int, dev,
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
     losses, norms, busy = [], [], None
     try:
-        state, m = step(state, parallel.dp_rows(next(loader), policy.ctx))
+        with counting_routes() as routes:
+            state, m = step(state, parallel.dp_rows(next(loader),
+                                                    policy.ctx))
         losses.append(m["loss"])
         norms.append(m["grad_norm"])
         torch.cuda.synchronize()
@@ -1876,16 +1927,22 @@ def qwen_mesh_steps(mesh, batch: int, steps: int, dev,
         if profiled:
             busy = device_busy(prof, prof_ms, steps=1)
             busy["nccl_device_ms"] = mesh_step_nccl_ms(prof)
+            busy["nccl_all_to_all_device_ms"] = mesh_step_nccl_ms(
+                prof, "SendRecv")
     finally:
         loader.close()
     peak = torch.cuda.max_memory_allocated(dev)
     tokens = batch * S
-    flops = qwen_train_flops(cfg, QWEN_PARAMS, tokens, S)
+    n_params = sum(a.numel() for a in tree_leaves(meta_params(cfg)))
     ref_flops = roofline.step_flops(cfg, "train", batch, S)
-    out = dict(mesh=list(mesh.mesh.shape), ranks=world, batch=batch, seq=S,
+    flops = ref_flops if cfg.is_moe else qwen_train_flops(
+        cfg, n_params, tokens, S)
+    out = dict(arch=cfg.name, layers=cfg.num_layers, params=n_params,
+               mesh=list(mesh.mesh.shape), ranks=world, batch=batch, seq=S,
                dp=list(policy.dp), tp=policy.ctx.tp_size, init_s=init_s,
                local_state_and_grad_bytes=local_bytes,
-               reckoned_bytes_per_card=QWEN_STATE_RECKONED / world,
+               reckoned_bytes_per_card=(STATE_BYTES_PER_PARAM * n_params
+                                        / world),
                peak_bytes=peak, steps=steps, ms_per_step=step_ms,
                tokens_per_s=tokens / step_ms * 1e3, model_flops=flops,
                mfu=flops / (step_ms / 1e3) / (world * BF16_FLOPS),
@@ -1894,6 +1951,8 @@ def qwen_mesh_steps(mesh, batch: int, steps: int, dev,
                / (world * BF16_FLOPS),
                losses=[float(x) for x in losses],
                grad_norms=[float(x) for x in norms], profile=busy)
+    if cfg.is_moe:
+        out["dropped_share"] = 1 - float(routes[0]) / routes[1]
     del params, state, m
     torch.cuda.empty_cache()
     return out
@@ -1901,7 +1960,8 @@ def qwen_mesh_steps(mesh, batch: int, steps: int, dev,
 
 def lm_mesh_phase(card: str, first_losses: list) -> list | None:
     """Phase 25 on one card: a one-rank NCCL group and a (1, 1) mesh (see
-    the module docstring); then, with four cards, ``lm_mesh_four``, whose
+    the module docstring), then the MoE at full width cut to
+    MOE_LAYERS_ONE layers; then, with four cards, ``lm_mesh_four``, whose
     rows it returns."""
     import math
     import tempfile
@@ -1919,16 +1979,20 @@ def lm_mesh_phase(card: str, first_losses: list) -> list | None:
                                 rank=0, world_size=1)
         try:
             mesh = make_production_mesh(1)
-            rows = [mesh_arch_vs_card(n, mesh, dev) for n in ARCHS
-                    if not ARCHS[n].is_moe]
+            rows = [mesh_arch_vs_card(n, mesh, dev) for n in ARCHS]
             arch_s = time.perf_counter() - t0
             qwen = qwen_mesh_steps(mesh, QWEN_TRAIN_B, MESH_LM_STEPS, dev)
+            t1 = time.perf_counter()
+            moe = qwen_mesh_steps(mesh, QWEN_TRAIN_B, MESH_LM_STEPS, dev,
+                                  profiled=True,
+                                  cfg=moe_config(MOE_LAYERS_ONE))
+            moe["seconds"] = time.perf_counter() - t1
         finally:
             dist.destroy_process_group()
     want = first_losses[:MESH_LM_STEPS]
     rel = max(abs(a - b) / abs(b) for a, b in zip(qwen["losses"], want))
     emit("lm_mesh", card=card, archs=rows, archs_s=arch_s, qwen3_4b=qwen,
-         phase23_losses=want, loss_rel_err_vs_phase23=rel,
+         phase23_losses=want, loss_rel_err_vs_phase23=rel, moe=moe,
          seconds=time.perf_counter() - t0)
     for r in rows:
         if (r["loss_rel_err"] > LM_LOSS_REL or r["grad_norm_rel_err"] >
@@ -1940,15 +2004,18 @@ def lm_mesh_phase(card: str, first_losses: list) -> list | None:
     if rel > LM_LOSS_REL:
         raise AssertionError(f"qwen3-4b on a (1, 1) mesh: losses "
                              f"{qwen['losses']} against phase 23's {want}")
+    if not all(math.isfinite(x) for x in moe["losses"] + moe["grad_norms"]):
+        raise AssertionError(f"{MOE_ARCH} over a mesh: {moe['losses']}")
     if torch.cuda.device_count() >= 4:
         return lm_mesh_four(card, qwen["losses"])
     return None
 
 
-def _lm_mesh_rank(rank: int, layout: str, batch: int, out_dir: str) -> None:
+def _lm_mesh_rank(rank: int, layout: str, batch: int, out_dir: str,
+                  moe_layers: int = 0) -> None:
     """One of ``lm_mesh_four``'s NCCL ranks: ``qwen_mesh_steps`` on card
-    ``rank`` over the ``layout`` of MESH_LM_FOUR, its row written to
-    ``out_dir``."""
+    ``rank`` over the ``layout`` of MESH_LM_FOUR (qwen3-4b, or the MoE cut
+    to ``moe_layers`` layers), its row written to ``out_dir``."""
     import torch
 
     from repro_torch.distributed.launch import training_mesh
@@ -1958,19 +2025,22 @@ def _lm_mesh_rank(rank: int, layout: str, batch: int, out_dir: str) -> None:
     mesh = (make_production_mesh(4) if layout == "production"
             else training_mesh("cuda", "2d"))
     row = qwen_mesh_steps(mesh, batch, MESH_LM_STEPS, dev,
-                          profiled=rank == 0)
+                          profiled=rank == 0,
+                          cfg=moe_config(moe_layers) if moe_layers else None)
     row["device"] = torch.cuda.get_device_name(dev)
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(row))
 
 
-def lm_mesh_four(card: str, one_card_losses: list, configs=MESH_LM_FOUR,
-                 rank_fn=None) -> list:
+def lm_mesh_four(card: str, one_card_losses: list | None,
+                 configs=MESH_LM_FOUR, rank_fn=None,
+                 moe_layers: int = 0) -> list:
     """Phase 25 on four cards: for each (layout, B) of ``configs``, 4
-    spawned NCCL ranks train qwen3-4b at full width (``_lm_mesh_rank``);
-    one line a configuration with every card's peak bytes and, at B = 1,
-    the losses' largest relative difference from ``one_card_losses`` (the
-    same batches on one card, bf16 summed in another order), which must
-    stay within MESH_FOUR_LOSS_REL.  ``rank_fn`` (``_lm_mesh_rank`` unless
+    spawned NCCL ranks train qwen3-4b at full width (or the MoE cut to
+    ``moe_layers`` layers; ``_lm_mesh_rank``); one line a configuration
+    with every card's peak bytes and, at B = 1 with ``one_card_losses``
+    given, the losses' largest relative difference from them (the same
+    batches on one card, bf16 summed in another order), which must stay
+    within MESH_FOUR_LOSS_REL.  ``rank_fn`` (``_lm_mesh_rank`` unless
     given) runs each rank."""
     import math
     import tempfile
@@ -1982,7 +2052,7 @@ def lm_mesh_four(card: str, one_card_losses: list, configs=MESH_LM_FOUR,
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             launch.spawn(rank_fn or _lm_mesh_rank, 4,
-                         args=(layout, batch, tmp),
+                         args=(layout, batch, tmp, moe_layers),
                          device_type="cuda", store_dir=tmp,
                          timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
             ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
@@ -1993,13 +2063,16 @@ def lm_mesh_four(card: str, one_card_losses: list, configs=MESH_LM_FOUR,
                    ms_per_step_per_rank=[r["ms_per_step"] for r in ranks],
                    seconds=time.perf_counter() - t0)
         row.pop("peak_bytes")
-        if batch == 1:
+        if "dropped_share" in lead:
+            row["dropped_share_per_rank"] = [r["dropped_share"]
+                                             for r in ranks]
+        if batch == 1 and one_card_losses:
             row["loss_rel_diff_vs_one_card"] = max(
                 abs(a - b) / abs(b)
                 for a, b in zip(lead["losses"], one_card_losses))
         emit("lm_mesh_four", card=card, **row)
         out.append(row)
-        where = f"qwen3-4b on a {lead['mesh']} mesh at B = {batch}"
+        where = f"{lead['arch']} on a {lead['mesh']} mesh at B = {batch}"
         if not all(math.isfinite(x) for r in ranks
                    for x in r["losses"] + r["grad_norms"]):
             raise AssertionError(f"{where}: non-finite losses")

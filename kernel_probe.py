@@ -19,6 +19,11 @@ and the phi-rebuild kernel K4 (``phi_update.cu``) and the fold-in kernel K3
                                                 # cards, then a planted
                                                 # fault against phase 25's
                                                 # four-card loss gate
+    python3 kernel_probe.py --lm-moe-four       # the expert-parallel MoE
+                                                # on four cards: one layer
+                                                # against one card's, a
+                                                # planted fault, then
+                                                # training at 16 layers
 
 Each source is built several ways with ``-D``, one ``nvcc`` each, all
 started together:
@@ -52,6 +57,7 @@ without a card.
 """
 from __future__ import annotations
 
+import json
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -480,7 +486,7 @@ def pubmed_memory(scales) -> int:
 
 
 def _dropped_reduce_rank(rank: int, layout: str, batch: int,
-                         out_dir: str) -> None:
+                         out_dir: str, moe_layers: int = 0) -> None:
     """``chip_smoke._lm_mesh_rank`` with a planted fault: in the forward of
     every step, the tp all-reduce of the first MLP's row-parallel output
     is skipped, so each rank carries its own partial sum on (the backward's
@@ -500,7 +506,7 @@ def _dropped_reduce_rank(rank: int, layout: str, batch: int,
         return loss_fn(*args, **kw)
 
     parallel.reduce_out, zoo.loss_fn = faulty_reduce, faulty_loss
-    cs._lm_mesh_rank(rank, layout, batch, out_dir)
+    cs._lm_mesh_rank(rank, layout, batch, out_dir, moe_layers)
 
 
 def lm_mesh_four_probe() -> int:
@@ -508,7 +514,6 @@ def lm_mesh_four_probe() -> int:
     and its gate on the (1, 4) mesh's B = 1 losses; then (1, 4) at B = 1
     once more with ``_dropped_reduce_rank``'s planted fault, which the
     gate must catch.  Exits 0 only when it does."""
-    import json
 
     import torch
 
@@ -540,11 +545,112 @@ def lm_mesh_four_probe() -> int:
     return 1
 
 
+MOE_GATE_CF = 8.0      # no routing dropped on one card or on the mesh
+MOE_GATE_REL = 1e-2    # (1, 4) against one card, of the output's scale
+
+
+def moe_layer_gate(dev, out_dir: str, planted: bool, cfg) -> None:
+    """One rank of the one-layer gate on a (1, 4) mesh: one MoE layer of
+    ``cfg``, every rank drawing the same weights and (1, 4096, d_model)
+    input from the seed on ``dev`` and keeping its quarter of the experts;
+    rank 0 also runs ``moe_ffn_local`` on all of them and writes the
+    largest difference over the output's scale.  ``planted``: the return
+    all-to-all's block from peer 1 (the outputs of its experts) comes back
+    zeroed."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import make_policy
+    from repro_torch.models import moe, parallel
+
+    mesh = make_production_mesh(4)
+    g = torch.Generator(device=dev).manual_seed(cs.SEED)
+    full = moe.init_moe(cfg, g)
+    x = torch.randn((1, cs.QWEN_TRAIN_S, cfg.d_model), generator=g,
+                    device=dev).to(cfg.dtype)
+    policy = make_policy(mesh, 1)
+    coord, size = parallel.mesh_coords(mesh, dist.get_rank())
+    p = parallel.shard_tree(full, moe.moe_specs(cfg, policy), coord, size)
+    if planted:
+        real = moe._from_owners
+
+        def from_owners(ye, ctx):
+            out = real(ye, ctx).clone()
+            n = out.shape[0] // ctx.tp_size
+            out[n:2 * n] = 0
+            return out
+
+        moe._from_owners = from_owners
+    with torch.no_grad():
+        y = moe.moe_ffn(p, cfg, x, policy=policy).float()
+        if dist.get_rank() == 0:
+            ref = moe.moe_ffn_local(full, cfg, x).float()
+            scale = float(ref.abs().max())
+            Path(out_dir, "gate.json").write_text(json.dumps(dict(
+                rel_err=float((y - ref).abs().max()) / scale, scale=scale,
+                shape=list(y.shape), planted=planted)))
+
+
+def _moe_layer_rank(rank: int, out_dir: str, planted: bool) -> None:
+    """``moe_layer_gate`` on card ``rank``: the MoE at full width, one
+    layer, capacity factor MOE_GATE_CF (bf16)."""
+    import dataclasses
+
+    import torch
+
+    cfg = dataclasses.replace(cs.moe_config(1), capacity_factor=MOE_GATE_CF)
+    moe_layer_gate(torch.device("cuda", torch.cuda.current_device()),
+                   out_dir, planted, cfg)
+
+
+def lm_moe_four_probe() -> int:
+    """The expert-parallel MoE on four cards: the one-layer gate
+    (``_moe_layer_rank``) clean and with its planted fault, which the gate
+    must catch; then ``lm_mesh_four`` on the MoE cut to
+    ``MOE_LAYERS_FOUR`` layers.  Exits 0 only when the gate passes clean
+    and catches the fault."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.distributed import launch
+
+    if torch.cuda.device_count() < 4:
+        print("kernel_probe --lm-moe-four: needs four cards", file=sys.stderr)
+        return 2
+    card = cs.card_line()
+    gate = {}
+    for planted in (False, True):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            launch.spawn(_moe_layer_rank, 4, args=(tmp, planted),
+                         device_type="cuda", store_dir=tmp,
+                         timeout_s=cs.MESH_COLLECTIVE_TIMEOUT_S)
+            gate[planted] = json.loads(Path(tmp, "gate.json").read_text())
+        gate[planted]["seconds"] = time.perf_counter() - t0
+    passed = gate[False]["rel_err"] <= MOE_GATE_REL
+    caught = gate[True]["rel_err"] > MOE_GATE_REL
+    cs.emit("moe_ep_gate", card=card, bound=MOE_GATE_REL, clean=gate[False],
+            planted=gate[True], passed=passed, caught=caught)
+    rows = cs.lm_mesh_four(card, None, moe_layers=cs.MOE_LAYERS_FOUR)
+    keys = ("layout", "mesh", "batch", "layers", "params", "ms_per_step",
+            "tokens_per_s", "mfu", "peak_bytes_per_card",
+            "reckoned_bytes_per_card", "dropped_share", "losses", "profile")
+    print(json.dumps({"phase": "lm_moe_four_summary",
+                      "rows": [{k: r.get(k) for k in keys} for r in rows]}),
+          flush=True)
+    print(card, flush=True)
+    return 0 if passed and caught else 1
+
+
 def main() -> int:
     import torch
 
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-mesh-four":
         return lm_mesh_four_probe()
+    if len(sys.argv) == 2 and sys.argv[1] == "--lm-moe-four":
+        return lm_moe_four_probe()
     if len(sys.argv) == 3 and sys.argv[1] == "--pubmed-memory":
         return pubmed_memory([float(x) for x in sys.argv[2].split(",")])
     if len(sys.argv) == 3 and sys.argv[1] == "--smoke-of":

@@ -13,8 +13,9 @@ group exists) and shows only at scale.  The contract is pinned two ways:
 *  **Executed**: the training step, the likelihood and both sync wires run
    on the CPU against a recording stand-in for ``torch.distributed`` whose
    groups are tagged data / model / world; so does a train step of the LM
-   zoo over a (1, 2) and a (2, 1) mesh, whose collectives must all ride
-   the model group and the data group respectively.  Every recorded call must come
+   zoo over a (1, 2) and a (2, 1) mesh (qwen3-4b, and qwen3-moe-30b-a3b
+   with its expert all-to-all), whose collectives must all ride the
+   model group and the data group respectively.  Every recorded call must come
    from a declared scope with a declared wire type and no int16 on any wire
    (fault F4: gloo and NCCL take none) (CC004), and phi-sized deltas must
    travel over the data group, theta partials and phi_sum over the model
@@ -91,6 +92,8 @@ SCOPE_CONTRACTS: dict[str, dict[str, tuple[frozenset, frozenset]]] = {
         "_reduce_scatter": (frozenset({"ctx", "groups", "axis"}),
                             frozenset({"float32", "bfloat16"})),
         "all_reduce_": (frozenset({"ctx", "groups", "a"}),
+                        frozenset({"float32", "bfloat16"})),
+        "_all_to_all": (frozenset({"ctx", "groups", "tp"}),
                         frozenset({"float32", "bfloat16"})),
     },
     "src/repro_torch/core/trainer.py": {},
@@ -698,6 +701,7 @@ def run(root: Path) -> list[Finding]:
             findings.extend(scan_module(path, rel, contracts))
     findings.extend(check_training_wires())
     findings.extend(check_lm_mesh_wires())
+    findings.extend(check_lm_mesh_wires(arch="qwen3-moe-30b-a3b"))
     findings.extend(check_byte_wire())
     findings.extend(check_route_roundtrip())
     findings.extend(check_serving_bytes())

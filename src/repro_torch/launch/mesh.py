@@ -3,7 +3,8 @@
 The port of ``repro.launch.mesh``.  No device or process-group state is
 touched at import: meshes are built by functions, over the ranks of the
 default process group (``torch.distributed.init_process_group`` first,
-one rank a card; gloo ranks make CPU meshes, NCCL ranks card meshes).
+one rank a card; gloo ranks make CPU meshes, NCCL ranks card meshes, and
+the dry run's fake group CPU meshes of any size).
 The reference's production target is a TPU v5e pod of 16 x 16 = 256
 chips ("data" x "model"), with a leading "pod" axis for two pods (512
 chips); here the card count is a parameter.
@@ -11,24 +12,38 @@ chips); here the card count is a parameter.
 from __future__ import annotations
 
 # NVIDIA H100 SXM (data sheet, dense rates, 700 W): the roofline's
-# denominators, the ones chip_smoke.py uses.  The reference's HBM_BYTES
-# and ICI_BW feed only its analyze_cell, which comes with the dry run
-# (ROADMAP 13e), and so do their counterparts: 80 GB a card, and NVLink
-# 4's 900 GB/s a card (the same data sheet; no run of this repository
-# has timed a collective against it).
+# denominators, the ones chip_smoke.py uses, and the card's memory, which
+# the dry run's fit is held against.
 PEAK_FLOPS_BF16 = 989e12       # per card, bf16 on the tensor cores
 PEAK_FLOPS_F32 = 67e12         # per card, float32 outside the tensor cores
 HBM_BW = 3.35e12               # bytes/s per card
+HBM_BYTES = 80e9               # per card
 
 # one host's NVLink domain: tensor parallelism stays inside it
 HOST_CARDS = 8
+
+# The collective bandwidths ``roofline.analyze_cell`` divides each mesh
+# axis's bytes by.  Data-sheet figures: no run of this repository has timed
+# a collective against either.
+NVLINK_BW = 900e9              # bytes/s a card, NVLink 4, inside one host
+NETWORK_BW = 50e9              # bytes/s a card, 400 Gb/s NDR, between hosts
+
+
+def axis_bandwidth(axis: str, cards: int) -> float:
+    """The bandwidth a card's collectives over mesh ``axis`` get on a mesh
+    of ``cards``: NVLink for the "model" axis (``make_production_mesh``
+    keeps it inside a host) and for any axis of a mesh that fits one host;
+    the network for "data" and "pod" across hosts."""
+    return NVLINK_BW if axis == "model" or cards <= HOST_CARDS \
+        else NETWORK_BW
 
 
 def _init(shape: tuple, names: tuple):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    kind = "cpu" if dist.get_backend() == "gloo" else "cuda"
+    # gloo ranks and the dry run's fake group make CPU meshes
+    kind = "cpu" if dist.get_backend() in ("gloo", "fake") else "cuda"
     return init_device_mesh(kind, shape, mesh_dim_names=names)
 
 

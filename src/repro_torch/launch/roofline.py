@@ -12,16 +12,25 @@ does (qwen3-4b: 4,026,531,840, where its tensors hold 4,026,727,936).
 ``step_flops`` takes a run's own batch and sequence, so ``chip_smoke.py``
 can count the work of the batch it trains.
 
-``analyze_cell``, ``render_table`` and ``CHIPS`` read the reference's
-dry-run records (XLA cost analysis of HLO compiled for 256 TPU chips):
-they wait for ROADMAP item 13e, which ports the memory-fit half of that
-tooling to H100 meshes.
+``analyze_cell`` and ``render_table`` read the records of
+``launch/dryrun.py``, which come from a dispatch trace of fake tensors on
+a mesh of H100 cards, not from HLO: the three terms of the reference's
+roofline, each a card's time, are its FLOPs over 989 TFLOP/s, the bytes
+its ops read and write one by one (eager PyTorch's unfused traffic) over
+3.35 TB/s, and each mesh axis's collective bytes over that axis's
+bandwidth (``mesh.axis_bandwidth``).  ``CHIPS`` is the dry run's default
+card count (the reference's 256-chip pod); a record carries its own.
 """
 from __future__ import annotations
 
+import json
+
 from repro_torch.configs.archs import ARCHS, SHAPES
+from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, axis_bandwidth
 from repro_torch.models.common import ModelConfig, padded_vocab
 from repro_torch.models.recurrent import ssd_dims
+
+CHIPS = 256
 
 
 def param_counts(cfg: ModelConfig) -> tuple[float, float]:
@@ -107,3 +116,50 @@ def model_flops(arch: str, shape: str) -> float:
     sh = SHAPES[shape]
     return step_flops(ARCHS[arch], sh["kind"], sh["global_batch"],
                       sh["seq_len"])
+
+
+def analyze_cell(cell: dict) -> dict:
+    """The roofline of one dry-run record with ``costs`` (every term a
+    card's; ``model_flops`` is the global step's, divided by the record's
+    card count where the two are compared)."""
+    costs = cell["costs"]
+    cards = cell["chips"]
+    t_compute = costs["flops"] / PEAK_FLOPS_BF16
+    t_memory = costs["op_bytes"] / HBM_BW
+    t_collective = sum(b / axis_bandwidth(axis, cards)
+                       for by_axis in costs["coll_bytes"].values()
+                       for axis, b in by_axis.items())
+    terms = dict(compute=t_compute, memory=t_memory, collective=t_collective)
+    bound = max(terms, key=terms.get)
+    mf = model_flops(cell["arch"], cell["shape"])
+    step = max(terms.values())
+    return dict(
+        t_compute=t_compute, t_memory=t_memory, t_collective=t_collective,
+        bound=bound, model_flops=mf,
+        useful_ratio=mf / max(costs["flops"] * cards, 1.0),
+        step_time=step, mfu=mf / cards / PEAK_FLOPS_BF16 / step)
+
+
+def render_table(path: str) -> str:
+    """The roofline of every probed record in a dry-run JSON file, as a
+    markdown table."""
+    with open(path) as f:
+        cells = json.load(f)
+    rows = ["| arch | shape | compute s | memory s | collective s | bound | "
+            "MODEL/HLO | roofline MFU |",
+            "|---|---|---|---|---|---|---|---|"]
+    for c in cells:
+        if c.get("status") != "ok" or "costs" not in c:
+            continue
+        r = analyze_cell(c)
+        rows.append(
+            f"| {c['arch']} | {c['shape']} | {r['t_compute']:.2e} | "
+            f"{r['t_memory']:.2e} | {r['t_collective']:.2e} | {r['bound']} | "
+            f"{r['useful_ratio']:.2f} | {r['mfu']:.1%} |")
+    return "\n".join(rows)
+
+
+if __name__ == "__main__":
+    import sys
+    print(render_table(sys.argv[1] if len(sys.argv) > 1
+                       else "results/dryrun.json"))

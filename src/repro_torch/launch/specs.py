@@ -7,7 +7,8 @@ memory anywhere.  ``make_policy`` is the reference's rule: batch over the
 dp axes (every axis but "model") when it divides them, tp over "model",
 FSDP params and optimizer over dp.
 
-``build_cell(arch, "train_4k", mesh)`` returns the mesh train step
+``build_cell(arch, "train_4k", mesh)`` (``train_cell`` of any config,
+batch and sequence) returns the mesh train step
 (``zoo.make_train_step`` under the policy, the reference's gradient
 accumulation of ``TRAIN_MICRO``) and its arguments as meta tensors: this
 rank's shards of the ``TrainState`` and its rows of the batch, the step's
@@ -15,17 +16,17 @@ own inputs (the reference's ``Cell`` holds global ShapeDtypeStructs and
 the shardings its jit places them with).  Prefill and decode cells raise:
 the reference builds them only for its dry run, and the port runs neither
 over a mesh yet (ROADMAP item 13f, with the context-parallel cache specs
-of ``long_500k``).  MoE train cells raise too: the reference runs them
-through its expert-parallel MoE (ROADMAP item 13d).
+of ``long_500k``).  MoE train cells run their layers expert-parallel over
+"model" (``moe.moe_ffn_ep``), as the reference's do.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.configs.archs import ARCHS, SHAPES
-from repro_torch.models import moe as moe_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models import zoo
 from repro_torch.models.common import (ModelConfig, ShardingPolicy,
@@ -59,13 +60,11 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(arch: str, shape: str) -> dict[str, torch.Tensor]:
-    """Model inputs as meta tensors (tokens/labels + stub frontends)."""
-    cfg = ARCHS[arch]
-    sh = SHAPES[shape]
-    B = sh["global_batch"]
-    S = sh["seq_len"]
-    if sh["kind"] == "decode":
+def model_inputs(cfg: ModelConfig, B: int, S: int,
+                 kind: str = "train") -> dict[str, torch.Tensor]:
+    """A batch of ``B`` sequences of ``S`` tokens (one token to decode) as
+    meta tensors: tokens and labels, and the stubbed frontends' inputs."""
+    if kind == "decode":
         out = {"token": _meta((B, 1), torch.int32)}
     else:
         out = {"tokens": _meta((B, S), torch.int32),
@@ -79,6 +78,13 @@ def input_specs(arch: str, shape: str) -> dict[str, torch.Tensor]:
     return out
 
 
+def input_specs(arch: str, shape: str) -> dict[str, torch.Tensor]:
+    """Model inputs as meta tensors (tokens/labels + stub frontends)."""
+    sh = SHAPES[shape]
+    return model_inputs(ARCHS[arch], sh["global_batch"], sh["seq_len"],
+                        sh["kind"])
+
+
 class Cell(NamedTuple):
     """Everything needed to run one (arch x shape x mesh) combination."""
 
@@ -87,6 +93,7 @@ class Cell(NamedTuple):
     cfg: ModelConfig
     policy: ShardingPolicy
     kind: str
+    micro_batches: int = 1  # the step's gradient accumulation
 
 
 def meta_params(cfg: ModelConfig) -> tf.ModelParams:
@@ -99,15 +106,15 @@ def meta_params(cfg: ModelConfig) -> tf.ModelParams:
     return tree_map(lambda a: _meta(a.shape, a.dtype), fake)
 
 
-def build_cell(arch: str, shape: str, mesh) -> Cell:
-    cfg = ARCHS[arch]
-    sh = SHAPES[shape]
-    B = sh["global_batch"]
-    if sh["kind"] != "train":
-        raise NotImplementedError(f"{arch} x {shape}: {tf.MESH_DECODE}")
-    if cfg.is_moe:
-        raise NotImplementedError(f"{arch} x {shape}: {moe_lib.MESH_MOE}")
-    policy = make_policy(mesh, B, sh["kind"])
+def train_cell(cfg: ModelConfig, B: int, S: int, mesh,
+               micro_batches: int = 1) -> Cell:
+    """The mesh train step of ``cfg`` on a global batch of ``B`` x ``S``
+    tokens, as the rank at ``mesh.get_coordinate()``: its shards of the
+    state and its rows of the batch as meta tensors.  A rank holding fewer
+    rows than ``micro_batches`` accumulates over as many micro-batches as
+    divide its rows (``TRAIN_MICRO`` counts the micro-batches of the
+    reference's 16-wide data axis, one row each)."""
+    policy = make_policy(mesh, B)
     names = tuple(mesh.mesh_dim_names)
     coord = dict(zip(names, mesh.get_coordinate()))
     size = {a: axis_size(mesh, a) for a in names}
@@ -118,9 +125,17 @@ def build_cell(arch: str, shape: str, mesh) -> Cell:
     state = zoo.TrainState(params, adamw.OptState(
         master=f32(params), m=f32(params), v=f32(params),
         step=_meta((), torch.int32)))
-    rows = B // (policy.ctx.dp_size if policy.dp else 1)
+    rows = B // math.prod(size[a] for a in policy.dp)
     batch = {k: _meta((rows,) + tuple(v.shape[1:]), v.dtype)
-             for k, v in input_specs(arch, shape).items()}
-    step = zoo.make_train_step(cfg, policy=policy,
-                               micro_batches=TRAIN_MICRO.get(arch, 1))
-    return Cell(step, (state, batch), cfg, policy, "train")
+             for k, v in model_inputs(cfg, B, S).items()}
+    micro = math.gcd(micro_batches, rows)
+    step = zoo.make_train_step(cfg, policy=policy, micro_batches=micro)
+    return Cell(step, (state, batch), cfg, policy, "train", micro)
+
+
+def build_cell(arch: str, shape: str, mesh) -> Cell:
+    sh = SHAPES[shape]
+    if sh["kind"] != "train":
+        raise NotImplementedError(f"{arch} x {shape}: {tf.MESH_DECODE}")
+    return train_cell(ARCHS[arch], sh["global_batch"], sh["seq_len"], mesh,
+                      TRAIN_MICRO.get(arch, 1))

@@ -30,9 +30,9 @@ architecture's ``smoke()`` config.  With ``--host-devices N`` or
 of shape (N // 2, min(N, 2)) with ``make_policy(mesh, batch=8)``: tensor
 parallelism over "model", the batch and ZeRO-3 over "data" (gloo ranks on
 the CPU, NCCL on cards); ``smoke()`` below 16 ranks and the full config
-from 16, as the reference.  MoE archs over a mesh are refused (their
-expert-parallel MoE is ROADMAP item 13d), and so is an odd rank count
-above one (the mesh would not cover the ranks).
+from 16, as the reference.  A MoE arch's layers run expert-parallel over
+"model".  An odd rank count above one is refused (the mesh would not
+cover the ranks).
 """
 from __future__ import annotations
 
@@ -41,9 +41,6 @@ import math
 import sys
 
 LM_BATCH, LM_SEQ, LM_SEED = 8, 128, 0
-LM_MESH_MOE = ("--workload lm over a mesh: {arch} is a MoE, and the "
-               "expert-parallel MoE (moe_ffn_ep) is ROADMAP item 13d, not "
-               "ported")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -92,10 +89,6 @@ def refused(args) -> str | None:
     if args.workload == "lm" and not args.arch:
         return "--arch is required for --workload lm"
     if args.workload == "lm" and (args.host_devices or args.distributed):
-        from repro_torch.configs.archs import ARCHS
-
-        if ARCHS[args.arch].is_moe:
-            return LM_MESH_MOE.format(arch=args.arch)
         n = args.host_devices
         if n > 1 and n % 2:
             return (f"--workload lm over {n} ranks: the ({n // 2}, 2) mesh "

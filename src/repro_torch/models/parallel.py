@@ -20,6 +20,13 @@ whose backward is its transpose:
   dp, and the sum of the partial gradients over tp), or, for a consumer
   replicated over tp (``partial=False``), takes this rank's slice of the
   complete gradient.
+* ``all_to_all`` (tp): block j of dim 0 to tp rank j, block j of the
+  result from rank j (``all_to_all_single``); its own transpose, so the
+  backward runs it on the gradient.  The expert-parallel MoE's dispatch
+  and return.
+* ``tp_slice`` / ``tp_gather``: this rank's block of a tensor replicated
+  over tp (the backward pads the gradient with zeros), and the blocks of
+  every tp rank put back together (the backward takes this rank's block).
 * ``vocab_embed`` and ``vocab_cross_entropy``: the embedding lookup and
   the cross entropy over a vocabulary sharded over tp (masked lookup plus
   all-reduce; max, sum of exponentials and the gold logit all-reduced,
@@ -169,6 +176,24 @@ class _Gather(torch.autograd.Function):
         return g, None, None, None, None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _all_to_all(x, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_to_all(g, fctx.ctx), None
+
+
+def _all_to_all(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    w = _wire(x, ctx.gloo[ctx.tp])
+    out = torch.empty_like(w)
+    dist.all_to_all_single(out, w, group=ctx.groups[ctx.tp])
+    return out.to(x.dtype)
+
+
 def copy_in(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
     """``x``, replicated over tp, entering a tp-partitioned computation."""
     axes = _live((ctx.tp,) if ctx.tp else (), ctx)
@@ -186,6 +211,21 @@ def tp_slice(x: torch.Tensor, dim: int, ctx: MeshContext) -> torch.Tensor:
     """This rank's tp shard of ``x`` along ``dim`` (autograd pads the
     gradient with zeros)."""
     return _split(x, dim, ctx.tp, ctx) if ctx.tp_size > 1 else x
+
+
+def tp_gather(x: torch.Tensor, dim: int, ctx: MeshContext) -> torch.Tensor:
+    """The tp ranks' blocks of ``x`` along ``dim``, concatenated in
+    coordinate order (the inverse of ``tp_slice``: the backward takes this
+    rank's block of the complete gradient)."""
+    return _Gather.apply(x, dim, (ctx.tp,), (), ctx) if ctx.tp_size > 1 \
+        else x
+
+
+def all_to_all(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """``x``'s dim 0 cut into tp equal blocks, block j sent to tp rank j;
+    block j of the result is what rank j sent this rank.  Nothing moves on
+    a tp axis of size 1."""
+    return _AllToAll.apply(x, ctx) if ctx.tp_size > 1 else x
 
 
 def reshard(w: torch.Tensor, stored: P, wanted: P, ctx: MeshContext,

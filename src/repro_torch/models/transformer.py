@@ -20,8 +20,8 @@ the params (``param_specs``; ``init_params`` returns them) and batch: the
 embedding and the logits vocab-parallel over tp, attention and the MLP
 Megatron-style (column-parallel in, row-parallel out, all-reduced), each
 FSDP-sharded weight gathered over dp before its use
-(``models/parallel.py``).  MoE over a mesh (expert parallelism, ROADMAP
-item 13d) and decode over a mesh (item 13f) raise.
+(``models/parallel.py``), MoE layers expert-parallel over tp
+(``moe.moe_ffn_ep``).  Decode over a mesh (ROADMAP item 13f) raises.
 """
 from __future__ import annotations
 

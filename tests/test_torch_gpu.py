@@ -958,8 +958,9 @@ def test_lm_train_launcher_on_cuda(dev, capsys):
 
 def _lm_mesh_rank(rank, out_path):
     """One NCCL rank on a (1, 1) ("data", "model") mesh: chip_smoke's
-    phase-25 check of every non-MoE smoke arch (two mesh train steps
-    against two one-device steps on the card)."""
+    phase-25 check of every smoke arch, the MoE archs' expert-parallel
+    path among them (two mesh train steps against two one-device steps on
+    the card)."""
     import pathlib
     import sys
 
@@ -972,8 +973,7 @@ def _lm_mesh_rank(rank, out_path):
 
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
-    rows = [chip_smoke.mesh_arch_vs_card(n, mesh, dev) for n in sorted(ARCHS)
-            if not ARCHS[n].is_moe]
+    rows = [chip_smoke.mesh_arch_vs_card(n, mesh, dev) for n in sorted(ARCHS)]
     torch.save(rows, out_path)
 
 
@@ -987,7 +987,7 @@ def test_lm_mesh_step_on_one_nccl_rank(dev, tmp_path):
     launch.spawn(_lm_mesh_rank, 1, args=(str(out),), device_type="cuda",
                  store_dir=str(tmp_path))
     rows = torch.load(out)
-    assert len(rows) == 8
+    assert len(rows) == 10
     for r in rows:
         assert r["finite"] and r["steps_equal"] and r["state_within_bound"]
         assert r["loss_rel_err"] <= 1e-5 and r["grad_norm_rel_err"] <= 1e-4

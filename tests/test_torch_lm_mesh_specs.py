@@ -52,6 +52,9 @@ class PortMesh:
     def size(self, dim: int) -> int:
         return self.shape[dim]
 
+    def get_coordinate(self):
+        return [0] * len(self.shape)
+
 
 def ref_mesh(shape):
     return types.SimpleNamespace(shape=dict(zip(("data", "model"), shape)),
@@ -172,12 +175,17 @@ def test_spec_entries_normalise_as_jax():
 
 
 def test_h100_constants():
-    """The roofline's denominators are the H100 SXM data sheet's, and
-    chip_smoke.py takes its own from this module."""
+    """The roofline's denominators are the H100 SXM data sheet's (the
+    collective bandwidths: NVLink 4 inside a host, 400 Gb/s NDR between
+    hosts), and chip_smoke.py takes its own from this module."""
     import chip_smoke
 
-    assert (tmesh.PEAK_FLOPS_BF16, tmesh.PEAK_FLOPS_F32, tmesh.HBM_BW) == (
-        989e12, 67e12, 3.35e12)
+    assert (tmesh.PEAK_FLOPS_BF16, tmesh.PEAK_FLOPS_F32, tmesh.HBM_BW,
+            tmesh.HBM_BYTES) == (989e12, 67e12, 3.35e12, 80e9)
+    assert (tmesh.NVLINK_BW, tmesh.NETWORK_BW) == (900e9, 50e9)
+    assert tmesh.axis_bandwidth("model", 256) == tmesh.NVLINK_BW
+    assert tmesh.axis_bandwidth("data", 256) == tmesh.NETWORK_BW
+    assert tmesh.axis_bandwidth("data", 4) == tmesh.NVLINK_BW
     assert chip_smoke.BF16_FLOPS is tmesh.PEAK_FLOPS_BF16
     assert chip_smoke.FP32_FLOPS is tmesh.PEAK_FLOPS_F32
     assert chip_smoke.HBM_BYTES_PER_S is tmesh.HBM_BW
@@ -192,9 +200,22 @@ def test_build_cell_refuses_serving_cells(kind):
         tspecs.build_cell(arch, kind, PortMesh((2, 2)))
 
 
-def test_build_cell_refuses_moe_train():
-    with pytest.raises(NotImplementedError, match="13d"):
-        tspecs.build_cell("qwen3-moe-30b-a3b", "train_4k", PortMesh((2, 2)))
+def test_build_cell_returns_the_moe_train_cell():
+    """qwen3-moe-30b-a3b x train_4k on (2, 2), as the rank at (0, 0): the
+    step, and the meta shards of its experts (128 over "model", d_model
+    2048 over "data") and of its rows of the 256 x 4096 batch; no process
+    group is touched."""
+    cell = tspecs.build_cell("qwen3-moe-30b-a3b", "train_4k",
+                             PortMesh((2, 2)))
+    assert cell.kind == "train" and callable(cell.fn)
+    state, batch = cell.args
+    cfg = tarchs.ARCHS["qwen3-moe-30b-a3b"]
+    wg = state.params.blocks[0].ffn.w_gate
+    assert (tuple(wg.shape), wg.dtype, wg.device.type) == (
+        (cfg.num_layers, 64, 1024, 768), torch.bfloat16, "meta")
+    assert tuple(state.opt.m.blocks[0].ffn.router.shape) == (
+        cfg.num_layers, 1024, 128)
+    assert tuple(batch["tokens"].shape) == (128, 4096)
 
 
 def test_meta_params_have_the_params_shapes():
@@ -222,6 +243,21 @@ def test_lm_mesh_collectives_satisfy_the_checker():
     from repro_torch.analysis import collectives
 
     assert collectives.check_lm_mesh_wires() == []
+
+
+def test_lm_mesh_moe_collectives_satisfy_the_checker(monkeypatch):
+    """The same for the MoE smoke arch: its expert all-to-all comes from
+    ``parallel._all_to_all`` over the model group, float32 on the wire."""
+    from repro_torch.analysis import collectives
+
+    calls = []
+    real = collectives.check_recorded
+    monkeypatch.setattr(collectives, "check_recorded",
+                        lambda c: calls.extend(c) or real(c))
+    assert collectives.check_lm_mesh_wires(arch="qwen3-moe-30b-a3b") == []
+    a2a = [c for c in calls if c["call"] == "all_to_all_single"]
+    assert a2a and {(c["scope"], c["role"], c["dtype"]) for c in a2a} == {
+        ("_all_to_all", "model", "float32")}
 
 
 def test_lm_mesh_checker_catches_a_wrong_group(monkeypatch):

@@ -1,8 +1,10 @@
 """The LM zoo's training over a ("data", "model") mesh in the port (tensor
 parallelism over "model", batch and ZeRO-3 over "data": ``ShardingPolicy``,
 ``models/parallel.py``) against the JAX package's one-device
-``make_train_step``, for every non-MoE architecture at ``smoke()`` width
-in float32, on gloo ranks spawned as processes: one spawn of 2 ranks on a
+``make_train_step``, for every architecture at ``smoke()`` width in
+float32 (the two MoE archs at capacity factor 8: each shard of their
+expert-parallel MoE sizes its own buffers, and only where nothing is
+dropped does the mesh keep the one device's routings), on gloo ranks spawned as processes: one spawn of 2 ranks on a
 (1, 2) mesh, one of 4 on a (2, 2) mesh and one of 4 on a (1, 4) mesh
 (tensor parallelism over every rank: the smoke width's 4 heads one a
 rank), each running every arch.  The (1, 2) and (1, 4) meshes come from
@@ -22,9 +24,9 @@ of its largest reference magnitude; after each step the loss within 1e-5
 and the grad norm within 1e-4 relative, ``step`` exact, and every param,
 master, m and v within 2 * lr_t + 1e-6 (lr_t summed over the steps).
 Also: the mesh builders' shapes and axis names (``make_host_mesh`` too),
-the ranks hold shards (a sharded leaf's local shape), MoE over the
-mesh is refused naming ROADMAP item 13d, and ``build_cell`` returns the
-step and this rank's meta shards of qwen3-4b's full ``TrainState``.
+the ranks hold shards (a sharded leaf's local shape, an MoE layer's
+experts over "model"), and ``build_cell`` returns the step and this
+rank's meta shards of qwen3-4b's full ``TrainState``.
 
 This module imports no JAX at its top: the spawned ranks import it by
 name.  The reference runs in the test's process.
@@ -42,8 +44,21 @@ from repro_torch.distributed import launch
 
 B, S, STEPS = 2, 16, 2
 MESH_SHAPES = [(1, 2), (2, 2), (1, 4)]
-MESH_ARCHS = sorted(a for a, c in tarchs.ARCHS.items() if not c.is_moe)
+MESH_ARCHS = sorted(tarchs.ARCHS)
+NO_DROP_CF = 8.0                     # the MoE archs' capacity factor here
 SHARD_KEY = "blocks.0.mixer.wq"      # (nb, D, H, hd): fsdp x tp sharded
+EXPERT_KEY = "blocks.0.ffn.w_gate"   # (nb, E, D, F): tp x fsdp sharded
+
+
+def capacity(name: str) -> float | None:
+    return NO_DROP_CF if tarchs.ARCHS[name].is_moe else None
+
+
+def smoke_f32(name: str):
+    cf = capacity(name)
+    return dataclasses.replace(tarchs.smoke(name), dtype=torch.float32,
+                               **({} if cf is None else
+                                  {"capacity_factor": cf}))
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +81,7 @@ def _ranks_main(rank, shape, in_dir, out_dir):
            "host/names": np.asarray(host.mesh_dim_names)}
     policy = specs.make_policy(mesh, B)
     for name in MESH_ARCHS:
-        cfg = dataclasses.replace(tarchs.smoke(name), dtype=torch.float32)
+        cfg = smoke_f32(name)
         arrays = dict(np.load(os.path.join(in_dir, f"{name}.npz")))
         batch = {k[6:]: torch.from_numpy(v) for k, v in arrays.items()
                  if k.startswith("batch.")}
@@ -76,9 +91,10 @@ def _ranks_main(rank, shape, in_dir, out_dir):
         sp = tf.param_specs(cfg, policy)
         state = convert.shard_train_state(whole, sp, mesh, rank)
         local = parallel.dp_rows(batch, policy.ctx)
-        out[f"{name}/local_shape"] = np.asarray(
-            convert.flatten(state.params)[SHARD_KEY].shape
-            if SHARD_KEY in convert.flatten(state.params) else ())
+        leaves = convert.flatten(state.params)
+        for key in (SHARD_KEY, EXPERT_KEY):
+            out[f"{name}/shape/{key}"] = np.asarray(
+                leaves[key].shape if key in leaves else ())
         loss, grads = zoo.loss_and_grads(state.params, cfg, local,
                                          policy=policy)
         out[f"{name}/loss"] = np.float64(loss)
@@ -93,18 +109,6 @@ def _ranks_main(rank, shape, in_dir, out_dir):
             for k, a in convert.flatten(
                     convert.gather_train_state(state, sp, mesh)).items():
                 out[f"{name}/{i}/state/{k}"] = a.numpy()
-    # MoE over the mesh: refused, naming item 13d
-    moe = dataclasses.replace(tarchs.smoke("qwen3-moe-30b-a3b"),
-                              dtype=torch.float32)
-    params = tf.init_params(moe, torch.Generator().manual_seed(0),
-                            policy=policy)
-    toks = torch.zeros((B // policy.ctx.dp_size, S), dtype=torch.int32)
-    try:
-        zoo.loss_fn(params, moe, {"tokens": toks, "labels": toks},
-                    policy=policy)
-        out["moe/refusal"] = np.asarray("")
-    except NotImplementedError as exc:
-        out["moe/refusal"] = np.asarray(str(exc))
     # the train cell of qwen3-4b at full width, as meta tensors
     cell = specs.build_cell("qwen3-4b", "train_4k", mesh)
     st, b = cell.args
@@ -160,7 +164,7 @@ def test_mesh_loss_and_grads_match_reference(runs, shape, name):
     from test_torch_lm_train import (GRAD_REL, LOSS_REL, assert_grads_close,
                                      reference_grads)
 
-    (jl, jg), _ = reference_grads(name)
+    (jl, jg), _ = reference_grads(name, capacity_factor=capacity(name))
     res = runs[shape]
     tl = float(res[f"{name}/loss"])
     assert np.isfinite(tl) and abs(tl - jl) <= LOSS_REL * abs(jl), (tl, jl)
@@ -174,7 +178,7 @@ def test_mesh_loss_and_grads_match_reference(runs, shape, name):
 def test_mesh_train_steps_match_reference(runs, shape, name):
     from test_torch_lm_train_steps import assert_steps_match, run_steps
 
-    ref = run_steps(name)
+    ref = run_steps(name, capacity_factor=capacity(name))
     res = runs[shape]
     steps = []
     for i, (jm, _, js, _) in enumerate(ref):
@@ -203,14 +207,18 @@ def test_ranks_hold_shards(runs, shape):
     """qwen3-4b smoke (d_model 64, 4 heads of 16): the first block's wq is
     (1, 64 / |data|, 4 / |model|, 16) on a rank."""
     d, t = shape
-    got = tuple(runs[shape]["qwen3-4b/local_shape"])
+    got = tuple(runs[shape][f"qwen3-4b/shape/{SHARD_KEY}"])
     assert got == (1, 64 // d, 4 // t, 16)
 
 
 @pytest.mark.parametrize("shape", MESH_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
-def test_moe_over_a_mesh_is_refused(runs, shape):
-    msg = str(runs[shape]["moe/refusal"])
-    assert "13d" in msg and "expert-parallel" in msg
+def test_ranks_hold_their_experts(runs, shape):
+    """The smoke qwen3-moe-30b-a3b (8 experts of d_model 64, moe_d_ff
+    32): a rank holds 8 / |model| experts' w_gate, their D split over
+    |data|, so its mesh steps above ran expert-parallel."""
+    d, t = shape
+    got = tuple(runs[shape][f"qwen3-moe-30b-a3b/shape/{EXPERT_KEY}"])
+    assert got == (1, 8 // t, 64 // d, 32)
 
 
 @pytest.mark.parametrize("shape", MESH_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")

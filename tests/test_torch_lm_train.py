@@ -41,9 +41,14 @@ GRAD_REL = 1e-4
 REMAT_REL = 1e-6
 
 
-def configs(name: str, jdtype=jnp.float32, tdtype=torch.float32):
-    return (dataclasses.replace(jarchs.smoke(name), dtype=jdtype),
-            dataclasses.replace(tarchs.smoke(name), dtype=tdtype))
+def configs(name: str, jdtype=jnp.float32, tdtype=torch.float32,
+            capacity_factor: float | None = None):
+    """Both packages' smoke configs of ``name`` (an MoE's capacity factor
+    replaced when given)."""
+    cf = {} if capacity_factor is None else {
+        "capacity_factor": capacity_factor}
+    return (dataclasses.replace(jarchs.smoke(name), dtype=jdtype, **cf),
+            dataclasses.replace(tarchs.smoke(name), dtype=tdtype, **cf))
 
 
 def make_batch(cfg, batch: int, seq: int, seed: int = 0) -> dict:
@@ -74,10 +79,11 @@ def ref_params(jcfg):
 
 
 @functools.lru_cache(maxsize=None)
-def reference_grads(name: str, batch: int = B, seq: int = S):
+def reference_grads(name: str, batch: int = B, seq: int = S,
+                    capacity_factor: float | None = None):
     """The reference's (loss, {path: grad}) and the port's, from the same
     weights and batch."""
-    jcfg, tcfg = configs(name)
+    jcfg, tcfg = configs(name, capacity_factor=capacity_factor)
     jp = ref_params(jcfg)
     nb = make_batch(jcfg, batch, seq)
     vg = jax.jit(jax.value_and_grad(

@@ -44,11 +44,12 @@ def lr_at(step: int, cfg=adamw.AdamWConfig()) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def run_steps(name: str, micro_batches: int = 1, batch: int = B):
+def run_steps(name: str, micro_batches: int = 1, batch: int = B,
+              capacity_factor: float | None = None):
     """STEPS train steps of both packages from the reference's initial
     TrainState on one batch: per step, (reference metrics, port metrics,
     reference state, port state), states flattened to numpy."""
-    jcfg, tcfg = configs(name)
+    jcfg, tcfg = configs(name, capacity_factor=capacity_factor)
     jp = ref_params(jcfg)
     nb = make_batch(jcfg, batch, S)
     jstate = jzoo.TrainState(jp, jadamw.init(jp))

@@ -515,15 +515,18 @@ def test_nytimes_config_matches_jax():
 @pytest.mark.parametrize("flags,refusal", [
     (["--workload", "lm", "--arch", "qwen3-4b", "--host-devices", "2"], None),
     (["--workload", "lm", "--arch", "qwen3-moe-30b-a3b", "--host-devices",
-      "2"], "item 13d"),
+      "2"], None),
+    (["--workload", "lm", "--arch", "qwen3-4b", "--host-devices", "3"],
+     "use an even count"),
     (["--workload", "lm", "--arch", "qwen3-4b"], None),
     (["--mode", "2d"], None),
     (["--host-devices", "2", "--mode", "2d", "--compressed-sync"], None),
     (["--distributed"], None)])
 def test_launch_train_refuses_mesh_flags(flags, refusal, tmp_path, capfd):
     """--workload lm trains on one device and over the reference's (1, 2)
-    mesh of 2 spawned gloo ranks; a MoE arch over a mesh is refused (its
-    expert-parallel MoE is ROADMAP item 13d); the LDA mesh flags train:
+    mesh of 2 spawned gloo ranks, a MoE arch there through its
+    expert-parallel MoE; an odd rank count is refused (the (1, 2) mesh
+    would not cover 3 ranks); the LDA mesh flags train:
     --mode 2d alone on one device (as the reference does), --host-devices
     as spawned gloo ranks, --distributed from a 1-rank torchrun environment
     with a file store (in a process of its own: no process group in the
@@ -544,7 +547,8 @@ def test_launch_train_refuses_mesh_flags(flags, refusal, tmp_path, capfd):
         out = capfd.readouterr().out
         where = ("a (1, 2) mesh of 2 cpu ranks" if "--host-devices" in flags
                  else "cpu")
-        assert f"[done] qwen3-4b-smoke on {where}: 2 steps" in out
+        arch = flags[flags.index("--arch") + 1]
+        assert f"[done] {arch}-smoke on {where}: 2 steps" in out
         assert out.count("[done]") == 1      # rank 0 alone reports
         loss = float(out.split("final loss ")[1].split(",")[0])
         assert np.isfinite(loss) and loss > 0.5
