@@ -187,6 +187,24 @@ from ``launch/specs.make_policy``, tensor parallelism and ZeRO-3 through
     configuration ms a step, tokens/s,
     ``mfu`` over 4 x 989 TFLOP/s, each card's peak bytes beside 64.4 GB /
     4, the losses, and one profiled step's busy share and NCCL time.
+26. the LM zoo's serving over a mesh, one NCCL rank, a (1, 1) mesh
+    (``make_production_mesh(1)``): qwen3-4b at full width, its params drawn
+    one layer at a time under the decode policy (``init_params(policy=)``)
+    against the whole draw; phase 20's decode (B in QWEN_BATCHES,
+    QWEN_MAX slots holding QWEN_PREFILL tokens, a stand-in state drawn
+    under the policy against the whole one) through
+    ``make_decode_step(cfg, policy)`` for MESH_SERVE_STEPS steps, and its
+    QWEN_S-token prefill through ``make_prefill_step(cfg, policy)``, each
+    against the one-device step on the same inputs; ms a step of both.
+    With four cards or more (``lm_serve_four``; ``python3 kernel_probe.py
+    --lm-serve-four`` runs it alone), two spawns of 4 NCCL ranks: qwen3-4b
+    on (1, 4) (decode_32k's 32,768-slot cache at B = 32, 64 steps, then
+    prefill_32k's length at B = 1) and gemma2-27b's long_500k at its own
+    size on (2, 2) (B = 1, 524,288 slots over "data", 32 steps), each
+    first gated against one card (``serve_gate_reference``: the whole
+    model on cuda:0 in this process) with its planted fault; per rank ms
+    a step, tokens/s, the bytes bound, the peak, one profiled step's busy
+    share and NCCL time, and the collective bytes a step.
 
 Model FLOPs (``mfu``): phases 23 and 25 count ``qwen_train_flops``: 6 N T
 over the 4,026,727,936 parameter tensors (norms included) plus the
@@ -254,7 +272,19 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
   losses finite, and the (1, 4) mesh's B = 1 losses within 1e-3 relative
   of the (1, 1) mesh's (the same batches; bf16 sums in another order
   differ by 1.8e-4, a dropped tp all-reduce by more than the bound: see
-  PERF.md).
+  PERF.md);
+* LM serving over a mesh: on the (1, 1) mesh the params and the stand-in
+  state drawn under the policy equal the whole draws, and every decode
+  step's logits and the prefill's equal the one-device step's bit for bit
+  (an axis of size one runs no collective), the position advanced; on
+  four cards every rank's logits finite, the collective bytes of a decode
+  step activation-sized (below SERVE_ACT_SHARE of the card's weight bytes:
+  no weight is all-gathered), and each gate's four-card logits within
+  SERVE_GATE_REL of the one card's (of their scale, over every step), its
+  planted fault beyond it (qwen3-4b on (1, 4), layout (a): one tp rank's
+  attention output left out of ``wo``'s all-reduce; gemma2-27b on (2, 2),
+  layout (c): one slot shard's partial sums left out of the softmax's
+  combine).
 
 Fails (non-zero exit, no result line) without a CUDA card, outside a
 checkout of the repository, or when any phase fails.
@@ -330,6 +360,31 @@ MOE_ARCH = "qwen3-moe-30b-a3b"   # at its published widths, depth cut:
 MOE_LAYERS_ONE = 6               # 4.05B parameters, 64.9 GB of state
 MOE_LAYERS_FOUR = 16             # 10.28B parameters, 41.1 GB a card of 4
 STATE_BYTES_PER_PARAM = 16       # bf16 params and grads, float32 master, m, v
+
+# the LM zoo's serving over a mesh (phase 26)
+MESH_SERVE_STEPS = 8           # (1, 1) decode steps at each QWEN_BATCHES
+# four cards, (B, cache slots, decode steps): qwen3-4b on (1, 4) with
+# decode_32k's cache, its batch cut from 128 to 32 (four cards cannot hold
+# 618 GB of cache); prefill_32k's length at B = 1 (cut from 32);
+# gemma2-27b's long_500k at its own size on (2, 2)
+SERVE_FOUR_QWEN = (32, 32_768, 64)
+SERVE_FOUR_PREFILL = (1, 32_768)
+SERVE_FOUR_GEMMA = (1, 524_288, 32)
+# the gates against one card: (B, slots, steps), bf16; the stand-in
+# caches' keys scaled to unit variance (0.02 x 50), their values to a
+# standard deviation of 64 (0.02 x 3200): unit-variance scores spread the
+# softmax over ~1,500 of 4,096 slots, so unit values would average to
+# ~0.03 and the attention (and any fault in its mesh code) would hardly
+# reach the logits beside the MLPs
+SERVE_GATE_QWEN = (8, 4_096, 8)
+SERVE_GATE_GEMMA = (1, 8_192, 8)
+SERVE_GATE_KV_SCALE = 50.0
+SERVE_GATE_V_SCALE = 3200.0
+SERVE_GATE_REL = 5e-2          # four cards against one, of the logits' scale
+SERVE_ACT_SHARE = 0.1          # a decode step's collective bytes over the
+                               # card's weight bytes (gathering each
+                               # weight once would make it >= 1)
+SERVE_TIMEOUT_S = 180          # a rank stuck this long fails the phase
 
 BATCH, BUCKETS, SWEEPS = 32, (32, 64, 128, 256), (8, 4)
 SERVE_DOCS, SWAP_DOCS = 256, 32
@@ -2082,6 +2137,522 @@ def lm_mesh_four(card: str, one_card_losses: list | None,
     return out
 
 
+def lm_serve_mesh_phase(card: str, dev="cuda:0") -> list | None:
+    """Phase 26 on one card (see the module docstring): a one-rank NCCL
+    group's (1, 1) mesh against the one-device steps, bit for bit
+    (``serve_mesh_one``); then, with four cards, ``lm_serve_four``, whose
+    rows it returns."""
+    import torch
+
+    serve_mesh_one(card, dev)
+    torch.cuda.empty_cache()         # cuda:0 is rank 0's in the spawns
+    if torch.cuda.device_count() >= 4:
+        return lm_serve_four(card, dev=str(dev))
+    return None
+
+
+def serve_mesh_one(card: str, dev) -> None:
+    """Phase 26's (1, 1) mesh on ``dev``; every tensor it makes is freed
+    when it returns."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.archs import QWEN3_4B as cfg
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import make_policy
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import zoo
+    from repro_torch.models.convert import flatten
+
+    dev = torch.device(dev)
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    torch.empty(1, device=dev)       # memory stats need the allocator
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+
+    def same(a, b) -> bool:
+        fa, fb = flatten(a), flatten(b)
+        return sorted(fa) == sorted(fb) and all(
+            fa[k].shape == fb[k].shape and torch.equal(fa[k], fb[k])
+            for k in fa)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_production_mesh(1)
+            params = tf.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(SEED))
+            local = tf.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(SEED),
+                policy=make_policy(mesh, QWEN_BATCHES[0], "decode"))
+            init_equal = same(params, local)
+            rows = []
+            for B in QWEN_BATCHES:
+                policy = make_policy(mesh, B, "decode")
+                one = zoo.init_decode_state(
+                    cfg, B, QWEN_MAX, QWEN_PREFILL,
+                    generator=torch.Generator(device=dev).manual_seed(B))
+                mine = zoo.init_decode_state(
+                    cfg, B, QWEN_MAX, QWEN_PREFILL,
+                    generator=torch.Generator(device=dev).manual_seed(B),
+                    policy=policy)
+                state_equal = same(one, mine)
+                tok = torch.randint(0, V, (B, MESH_SERVE_STEPS), device=dev,
+                                    generator=torch.Generator(
+                                        device=dev).manual_seed(B + 1))
+                ms, logits, after = {}, {}, {}
+                for name, p, st, step in (
+                        ("one", params, one, zoo.make_decode_step(cfg)),
+                        ("mesh", local, mine, zoo.make_decode_step(
+                            cfg, policy=policy))):
+                    a, b = ev(), ev()
+                    a.record()
+                    outs = []
+                    for i in range(MESH_SERVE_STEPS):
+                        out, st = step(p, st, tok[:, i:i + 1])
+                        outs.append(out)
+                    b.record()
+                    b.synchronize()
+                    ms[name] = a.elapsed_time(b) / MESH_SERVE_STEPS
+                    logits[name], after[name] = outs, st
+                rows.append(dict(
+                    batch=B, steps=MESH_SERVE_STEPS, state_equal=state_equal,
+                    bit_equal=all(torch.equal(x, y) for x, y in
+                                  zip(logits["one"], logits["mesh"])),
+                    same_state_after=same(after["one"], after["mesh"]),
+                    position=int(after["mesh"].position),
+                    finite=bool(torch.isfinite(
+                        logits["mesh"][-1].float()).all()),
+                    ms_per_step_one_device=ms["one"],
+                    ms_per_step_mesh=ms["mesh"]))
+                del one, mine, logits, after
+                torch.cuda.empty_cache()
+            toks = torch.randint(0, V, (1, QWEN_S), device=dev,
+                                 generator=torch.Generator(
+                                     device=dev).manual_seed(2))
+            pre = {}
+            for name, p, step in (
+                    ("one", params, zoo.make_prefill_step(cfg)),
+                    ("mesh", local, zoo.make_prefill_step(
+                        cfg, policy=make_policy(mesh, 1, "prefill")))):
+                a, b = ev(), ev()
+                a.record()
+                pre[name] = step(p, {"tokens": toks})
+                b.record()
+                b.synchronize()
+                pre[name + "_ms"] = a.elapsed_time(b)
+        finally:
+            dist.destroy_process_group()
+    prefill = dict(S=QWEN_S, bit_equal=torch.equal(pre["one"], pre["mesh"]),
+                   finite=bool(torch.isfinite(pre["mesh"].float()).all()),
+                   ms_one_device=pre["one_ms"], ms_mesh=pre["mesh_ms"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, local, pre
+    torch.cuda.empty_cache()
+    emit("lm_serve_mesh", card=card, arch=cfg.name, mesh=[1, 1],
+         init_equal=init_equal, decode=rows, prefill=prefill,
+         peak_bytes=peak, seconds=time.perf_counter() - t0)
+    if not init_equal:
+        raise AssertionError("qwen3-4b: init_params(policy=) differs from "
+                             "the whole draw")
+    for r in rows:
+        if not (r["state_equal"] and r["bit_equal"] and r["same_state_after"]
+                and r["finite"] and r["position"] ==
+                QWEN_PREFILL + MESH_SERVE_STEPS):
+            raise AssertionError(f"qwen3-4b decode on a (1, 1) mesh: {r}")
+    if not (prefill["bit_equal"] and prefill["finite"]):
+        raise AssertionError(f"qwen3-4b prefill on a (1, 1) mesh: {prefill}")
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """The collectives ``models/parallel.py`` issues, wrapped to add up the
+    bytes of their results by op: yields {op: bytes}."""
+    import torch.distributed as dist
+
+    tally: dict = {}
+    names = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "all_to_all_single")
+    real = {n: getattr(dist, n) for n in names}
+
+    def wrap(n):
+        def call(out, *args, **kw):
+            tally[n] = tally.get(n, 0) + out.numel() * out.element_size()
+            return real[n](out, *args, **kw)
+        return call
+
+    for n in names:
+        setattr(dist, n, wrap(n))
+    try:
+        yield tally
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+
+
+def _scale_kv(state) -> None:
+    """Every KV cache's keys of ``state`` times SERVE_GATE_KV_SCALE and
+    its values times SERVE_GATE_V_SCALE, in place (the same elementwise
+    bf16 product on a whole state and on a shard of it)."""
+    from repro_torch.models.convert import flatten
+
+    for k, a in flatten(state).items():
+        if k.endswith(".k"):
+            a.mul_(SERVE_GATE_KV_SCALE)
+        elif k.endswith(".v"):
+            a.mul_(SERVE_GATE_V_SCALE)
+
+
+def _gate_config(job: str):
+    """(config, B, cache slots, steps) of a job's gate."""
+    from repro_torch.configs.archs import GEMMA2_27B, QWEN3_4B
+
+    return ((QWEN3_4B,) + SERVE_GATE_QWEN if job == "qwen"
+            else (GEMMA2_27B,) + SERVE_GATE_GEMMA)
+
+
+def _gate_tokens(cfg, B: int, steps: int):
+    import torch
+
+    return torch.randint(0, cfg.vocab_size, (B, steps),
+                         generator=torch.Generator().manual_seed(SEED + 3))
+
+
+def serve_gate_reference(job: str, dev, path: str) -> None:
+    """The one-card side of a four-card gate: the whole model and stand-in
+    state drawn from the seed on ``dev``, the caches scaled
+    (``_scale_kv``), ``steps`` decode steps on ``_gate_tokens``; their
+    logits (the real vocabulary, float32, on the host) saved to ``path``.
+    Everything is freed at the end."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import zoo
+
+    cfg, B, slots, steps = _gate_config(job)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = tf.init_params(cfg, gen)
+    state = zoo.init_decode_state(cfg, B, slots, slots - 1, generator=gen)
+    _scale_kv(state)
+    tokens = _gate_tokens(cfg, B, steps).to(dev)
+    step = zoo.make_decode_step(cfg)
+    out = []
+    for i in range(steps):
+        logits, state = step(params, state, tokens[:, i:i + 1])
+        out.append(logits[..., :cfg.vocab_size].float().cpu())
+    torch.save(torch.stack(out), path)
+    del params, state, logits
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def planted_serve_fault(job: str):
+    """The fault each gate must catch.  qwen3-4b on (1, 4) (layout (a),
+    no slot shard): tp rank 1's attention output is left out of ``wo``'s
+    all-reduce (it sends zeros).  gemma2-27b on (2, 2) (layout (c)): the
+    slot shard at data coordinate 1 is left out of the softmax's combine
+    (its scores all masked, so its partial sums are zero)."""
+    import torch
+
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import parallel
+
+    if job == "qwen":
+        real = parallel.reduce_out
+
+        def reduce_out(x, ctx, axes=None):
+            if sys._getframe(1).f_code.co_name == "_mesh_decode_attention" \
+                    and ctx.tp_rank == 1:
+                x = x * 0
+            return real(x, ctx, axes)
+
+        parallel.reduce_out = reduce_out
+        try:
+            yield
+        finally:
+            parallel.reduce_out = real
+        return
+    real = attn_lib._combine_slots
+
+    def combine(logits, v, axes, ctx, dtype):
+        if ctx.coord.get("data") == 1:
+            logits = torch.full_like(logits, attn_lib.NEG_INF)
+        return real(logits, v, axes, ctx, dtype)
+
+    attn_lib._combine_slots = combine
+    try:
+        yield
+    finally:
+        attn_lib._combine_slots = real
+
+
+def _gate_run(cfg, params, state, tokens, policy, ref) -> float:
+    """Decode ``tokens`` from a copy of ``state`` on the mesh: the largest
+    difference of the gathered logits from ``ref`` over its scale."""
+    from repro_torch.models import parallel, zoo
+    from repro_torch.models.common import P, tree_map
+
+    st = tree_map(lambda a: a.clone(), state)
+    step = zoo.make_decode_step(cfg, policy=policy)
+    spec = P(policy.batch(), None, policy.tp)
+    err = 0.0
+    for i in range(tokens.shape[1]):
+        logits, st = step(params, st, tokens[:, i:i + 1])
+        full = parallel.gather_full(logits, spec, policy.ctx)
+        got = full[..., :cfg.vocab_size].float().cpu()
+        err = max(err, float((got - ref[i]).abs().max() / ref[i].abs().max()))
+    return err
+
+
+def serve_run(cfg, params, mesh, B: int, slots: int, steps: int,
+              dev) -> dict:
+    """``steps`` timed decode steps of ``cfg`` over ``mesh`` on this rank:
+    its shards of a stand-in state of ``slots`` slots holding ``slots -
+    1`` tokens drawn under the policy, tokens from a seeded generator (the
+    same on every rank), 2 warm-up steps first; then one step with its
+    collectives counted and one under ``torch.profiler`` (every rank runs
+    both: their collectives need them all).  ``peak_bytes`` is the
+    decoding's, from after the state's draw (``init_peak_bytes``, whose
+    transients hold one layer's whole cache).  Everything is freed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.specs import make_policy
+    from repro_torch.models import parallel, zoo
+    from repro_torch.models.common import tree_leaves
+
+    policy = make_policy(mesh, B, "decode")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = zoo.init_decode_state(
+        cfg, B, slots, slots - 1, policy=policy,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tokens = parallel.dp_rows({"t": torch.randint(
+        0, cfg.vocab_size, (B, steps + 4),
+        generator=torch.Generator().manual_seed(SEED + 2))},
+        policy.ctx)["t"].to(dev)
+    step = zoo.make_decode_step(cfg, policy=policy)
+    for i in range(2):
+        logits, state = step(params, state, tokens[:, i:i + 1])
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for i in range(2, 2 + steps):
+        logits, state = step(params, state, tokens[:, i:i + 1])
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / steps
+    with counting_collectives() as nccl:
+        logits, state = step(params, state, tokens[:, -2:-1])
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        logits, state = step(params, state, tokens[:, -1:])
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t1) * 1e3
+    busy = device_busy(prof, prof_ms, steps=1)
+    busy["top_kernels"] = busy.get("top_kernels", [])[:5]
+    busy["nccl_device_ms"] = mesh_step_nccl_ms(prof)
+    w_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    kv = cache_bytes(state)
+    out = dict(batch=B, slots=slots, steps=steps, init_s=init_s,
+               init_peak_bytes=init_peak, ms_per_step=ms,
+               tokens_per_s=B / ms * 1e3,
+               weight_bytes=w_bytes, kv_cache_bytes=kv,
+               bound_ms=(w_bytes + kv) / HBM_BYTES_PER_S * 1e3,
+               nccl_bytes_per_step=nccl,
+               act_share=sum(nccl.values()) / w_bytes,
+               position=int(state.position), profile=busy,
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               finite=bool(torch.isfinite(logits.float()).all()))
+    del state, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefill_run(cfg, params, mesh, B: int, S: int, dev) -> dict:
+    """A prefill of ``B`` x ``S`` seeded tokens over ``mesh`` on this rank
+    (its rows), one warm-up call and one timed (CUDA events), then one
+    under ``torch.profiler``; its FLOP bound over the ranks' 989 TFLOP/s
+    (phase 20's dense count)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.specs import make_policy, meta_params
+    from repro_torch.models import parallel, zoo
+    from repro_torch.models.common import padded_vocab, tree_leaves
+
+    policy = make_policy(mesh, B, "prefill")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    toks = parallel.dp_rows({"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S),
+        generator=torch.Generator().manual_seed(SEED + 4))},
+        policy.ctx)["tokens"].to(dev)
+    step = zoo.make_prefill_step(cfg, policy=policy)
+    step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    with counting_collectives() as nccl:
+        logits = step(params, {"tokens": toks})
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t1) * 1e3
+    busy = device_busy(prof, prof_ms, steps=1)
+    busy["top_kernels"] = busy.get("top_kernels", [])[:5]
+    busy["nccl_device_ms"] = mesh_step_nccl_ms(prof)
+    n_params = sum(t.numel() for t in tree_leaves(meta_params(cfg)))
+    vp = padded_vocab(cfg.vocab_size)
+    flops = B * (2 * (n_params - vp * cfg.d_model) * S
+                 + 2 * cfg.d_model * vp
+                 + 2 * S * S * cfg.num_heads * cfg.hd * cfg.num_layers)
+    out = dict(batch=B, S=S, ms=ms, tokens_per_s=B * S / ms * 1e3,
+               flops=flops, bound_ms=flops / (dist.get_world_size()
+                                              * BF16_FLOPS) * 1e3,
+               nccl_bytes=nccl, profile=busy,
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               finite=bool(torch.isfinite(logits.float()).all()))
+    del logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _serve_rank(rank: int, job: str, tmp: str) -> None:
+    """One of ``lm_serve_four``'s NCCL ranks (``serve_job``).  A failure
+    is printed at once: the group's teardown after it can wait on the
+    peers until their collectives time out."""
+    import traceback
+
+    try:
+        serve_job(rank, job, tmp)
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        raise
+
+
+def serve_job(rank: int, job: str, tmp: str) -> None:
+    """The gate (clean, then with ``planted_serve_fault``) against
+    ``serve_gate_reference``'s logits, then the runs of ``job`` (qwen3-4b's
+    decode and prefill on (1, 4), or gemma2-27b's long_500k on (2, 2)) on
+    this rank; its row written to ``tmp``."""
+    import torch
+
+    from repro_torch.distributed.launch import training_mesh
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import make_policy
+    from repro_torch.models import parallel
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import zoo
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = (make_production_mesh(4) if job == "qwen"
+            else training_mesh("cuda", "2d"))
+    cfg, B, slots, steps = _gate_config(job)
+    policy = make_policy(mesh, B, "decode")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = tf.init_params(cfg, gen, policy=policy)
+    torch.cuda.empty_cache()
+    state = zoo.init_decode_state(cfg, B, slots, slots - 1, generator=gen,
+                                  policy=policy)
+    _scale_kv(state)
+    tokens = parallel.dp_rows({"t": _gate_tokens(cfg, B, steps)},
+                              policy.ctx)["t"].to(dev)
+    ref = torch.load(Path(tmp, f"{job}_ref.pt"))
+    clean = _gate_run(cfg, params, state, tokens, policy, ref)
+    with planted_serve_fault(job):
+        planted = _gate_run(cfg, params, state, tokens, policy, ref)
+    del state
+    torch.cuda.empty_cache()
+    row = dict(rank=rank, device=torch.cuda.get_device_name(dev),
+               arch=cfg.name, mesh=list(mesh.mesh.shape),
+               dp=list(policy.dp), tp=policy.ctx.tp_size,
+               gate=dict(batch=B, slots=slots, steps=steps, clean=clean,
+                         planted=planted, bound=SERVE_GATE_REL,
+                         seconds=time.perf_counter() - t0))
+    if job == "qwen":
+        Bd, sl, st = SERVE_FOUR_QWEN
+        row["decode"] = serve_run(cfg, params, mesh, Bd, sl, st, dev)
+        row["prefill"] = prefill_run(cfg, params, mesh, *SERVE_FOUR_PREFILL,
+                                     dev)
+    else:
+        row["decode"] = serve_run(cfg, params, mesh, *SERVE_FOUR_GEMMA, dev)
+    Path(tmp, f"{job}_rank{rank}.json").write_text(json.dumps(row))
+
+
+def lm_serve_four(card: str, jobs=("qwen", "gemma"), rank_fn=None,
+                  dev="cuda:0") -> list:
+    """Phase 26 on four cards: for each job, the gate's one-card reference
+    on ``dev`` (``serve_gate_reference``), then 4 spawned NCCL ranks
+    (``_serve_rank``, unless ``rank_fn`` is given); one line a job with
+    every rank's row.  Every job runs; then it fails unless every rank's
+    logits are finite, the decode step's collectives are activation-sized,
+    and the gate holds clean and catches its planted fault."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.distributed import launch
+
+    out, failed = [], []
+    for job in jobs:
+        t0 = time.perf_counter()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                serve_gate_reference(job, torch.device(dev),
+                                     str(Path(tmp, f"{job}_ref.pt")))
+                ref_s = time.perf_counter() - t0
+                launch.spawn(rank_fn or _serve_rank, 4, args=(job, tmp),
+                             device_type="cuda", store_dir=tmp,
+                             timeout_s=SERVE_TIMEOUT_S)
+                ranks = [json.loads(Path(tmp, f"{job}_rank{r}.json")
+                                    .read_text()) for r in range(4)]
+        except Exception as exc:  # noqa: BLE001 (the other job still runs)
+            failed.append(f"{job}: {type(exc).__name__}: {exc}")
+            torch.cuda.empty_cache()
+            continue
+        row = dict(job=job, arch=ranks[0]["arch"], mesh=ranks[0]["mesh"],
+                   reference_s=ref_s, seconds=time.perf_counter() - t0,
+                   ranks=ranks)
+        emit("lm_serve_four", card=card, **row)
+        out.append(row)
+        where = f"{row['arch']} on a {row['mesh']} mesh"
+        for r in ranks:
+            g, d = r["gate"], r["decode"]
+            if not g["clean"] <= SERVE_GATE_REL < g["planted"]:
+                failed.append(f"{where}, rank {r['rank']}: gate {g}")
+            failed += [f"{where}: non-finite {kind}"
+                       for kind in ("decode", "prefill")
+                       if kind in r and not r[kind]["finite"]]
+            if d["act_share"] > SERVE_ACT_SHARE:
+                failed.append(f"{where}: a decode step's collectives "
+                              f"{d['nccl_bytes_per_step']} are not "
+                              "activation-sized")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
 def train_phases(card: str, scale: float, iters: int,
                  device="cuda:0") -> list[dict]:
     """Phases 7-14; returns the kernels-line rows of K1, K2 and K4."""
@@ -2686,6 +3257,9 @@ def main() -> int:
 
     # -- 25. the LM zoo's training over a mesh -------------------------------
     lm_mesh_phase(card, first_losses)
+
+    # -- 26. the LM zoo's serving over a mesh --------------------------------
+    lm_serve_mesh_phase(card)
     print(json.dumps({"kernels": [k3_row] + train_rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(card, flush=True)

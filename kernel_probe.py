@@ -24,6 +24,13 @@ and the phi-rebuild kernel K4 (``phi_update.cu``) and the fold-in kernel K3
                                                 # against one card's, a
                                                 # planted fault, then
                                                 # training at 16 layers
+    python3 kernel_probe.py --lm-serve-four     # phase 26: serving over
+                                                # a (1, 1) mesh, then on
+                                                # four cards qwen3-4b's
+                                                # decode and prefill on
+                                                # (1, 4) and gemma2-27b's
+                                                # long_500k on (2, 2), each
+                                                # gated against one card
 
 Each source is built several ways with ``-D``, one ``nvcc`` each, all
 started together:
@@ -644,9 +651,46 @@ def lm_moe_four_probe() -> int:
     return 0 if passed and caught else 1
 
 
+def lm_serve_four_probe() -> int:
+    """Phase 26 alone (``chip_smoke.lm_serve_mesh_phase``): the (1, 1) mesh
+    against one device, then ``lm_serve_four`` on four cards, with a
+    summary line of every rank's numbers."""
+    import torch
+
+    if torch.cuda.device_count() < 4:
+        print("kernel_probe --lm-serve-four: needs four cards",
+              file=sys.stderr)
+        return 2
+    card = cs.card_line()
+    torch.empty(1, device="cuda:0")    # memory stats need the allocator
+    rows = cs.lm_serve_mesh_phase(card)
+    keys = ("ms_per_step", "tokens_per_s", "bound_ms", "peak_bytes",
+            "nccl_bytes_per_step", "act_share", "kv_cache_bytes",
+            "weight_bytes", "init_s")
+    summary = []
+    for row in rows:
+        for r in row["ranks"]:
+            d = r["decode"]
+            summary.append(dict(
+                arch=r["arch"], mesh=r["mesh"], rank=r["rank"],
+                gate=r["gate"], decode={k: d[k] for k in keys},
+                busy_share=d["profile"].get("busy_share"),
+                nccl_device_ms=d["profile"].get("nccl_device_ms"),
+                prefill=None if "prefill" not in r else {
+                    k: r["prefill"][k] for k in ("ms", "tokens_per_s",
+                                                 "bound_ms", "peak_bytes",
+                                                 "nccl_bytes")}))
+    print(json.dumps({"phase": "lm_serve_four_summary", "rows": summary}),
+          flush=True)
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 2 and sys.argv[1] == "--lm-serve-four":
+        return lm_serve_four_probe()
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-mesh-four":
         return lm_mesh_four_probe()
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-moe-four":

@@ -1,6 +1,6 @@
-"""The dry run: each (arch x shape) cell's train step on a mesh of H100
-cards, traced on fake tensors, with its memory a card, its FLOPs, the bytes
-its ops move and its collective bytes by mesh axis.
+"""The dry run: each (arch x shape) cell's train, prefill or decode step on
+a mesh of H100 cards, traced on fake tensors, with its memory a card, its
+FLOPs, the bytes its ops move and its collective bytes by mesh axis.
 
 The port of ``repro.launch.dryrun``.  The reference lowers and compiles
 each cell for 512 forced TPU host devices and reads XLA's memory and cost
@@ -43,9 +43,16 @@ micro-batch's rows, with the float32 gradient accumulators added when
 Parameter, gradient and optimizer bytes are exact, from the full-depth
 shards of ``build_cell``.
 
-Prefill and decode cells are ``status: "skip"`` with ``build_cell``'s
-message (ROADMAP item 13f), and ``configs.archs.skipped_cells()`` is
-reported as the reference reports it.  ``run_config`` dry-runs a
+Prefill and decode cells (``specs.serve_cell``) run their step once on
+fake tensors of this rank's shards of the params, the decode state (the
+caches holding ``S - 1`` tokens) and its rows of the inputs
+(``trace_serve``): the memory is the params, the state (``cache_bytes``:
+caches, recurrent states and their positions), the inputs and the step's
+transients above them at full depth; the costs are the same 1- and
+2-block probe, extrapolated (no micro-batches).  A decode step keeps its
+FSDP weights sharded, so its collectives are activation-sized.
+``configs.archs.skipped_cells()`` is reported as the reference reports
+it.  ``run_config`` dry-runs a
 configuration at a batch and sequence the card has run, so that the
 memory model can be held against the card's measured peak.
 
@@ -257,6 +264,82 @@ def trace_step(cell: specs_lib.Cell, mesh, micro: int = 1,
                 saved=trace.saved, **split)
 
 
+def _tensors(tree) -> list:
+    """The tensors of a step's arguments (trees and dicts of inputs)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors(v)]
+    return tree_leaves(tree)
+
+
+def _fake_args(args):
+    """Fake tensors of the meta tensors of a step's arguments."""
+    if isinstance(args, dict):
+        return {k: _fake_args(v) for k, v in args.items()}
+    if isinstance(args, torch.Tensor):
+        return torch.zeros(args.shape, dtype=args.dtype)
+    return tree_map(lambda a: torch.zeros(a.shape, dtype=a.dtype), args) \
+        if hasattr(args, "_fields") else type(args)(
+            _fake_args(a) for a in args)
+
+
+def trace_serve(cell: specs_lib.Cell, mesh) -> dict:
+    """One prefill or decode step of ``cell`` on fake tensors of its meta
+    arguments: FLOPs, op bytes, collectives, and the peak bytes above the
+    arguments (the decode state is written in place: its storages are
+    held)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    fake = FakeTensorMode()
+    with fake:
+        args = _fake_args(cell.args)
+    flops = FlopCounterMode(display=False)
+    trace = Trace(_mesh_axes(mesh), _tensors(args))
+    with fake, flops, trace:
+        out = cell.fn(*args)
+        del out
+    return dict(flops=float(flops.get_total_flops()),
+                op_bytes=float(trace.op_bytes), coll=trace.coll_bytes(),
+                collectives=trace.collectives, peak=trace.peak)
+
+
+def serve_memory(cell: specs_lib.Cell, mesh, trace: bool = True) -> dict:
+    """A card's bytes in a serving cell's step: its parameters, its decode
+    state (``cache_bytes``; 0 for a prefill) and inputs, exact from its
+    shards, and, traced at full depth, the step's transients above them
+    and the peak."""
+    nbytes = lambda tree: sum(_nbytes(a)  # noqa: E731
+                              for a in _tensors(tree))
+    params, *rest = cell.args
+    state = rest[0] if cell.kind == "decode" else None
+    out = dict(param_bytes=nbytes(params), cache_bytes=nbytes(state),
+               batch_bytes=nbytes(rest[-1]))
+    peak = 0
+    if trace:
+        peak = trace_serve(cell, mesh)["peak"]
+        out["temp_bytes"] = peak
+    out["peak_device_bytes"] = (out["param_bytes"] + out["cache_bytes"]
+                                + out["batch_bytes"] + peak)
+    return out
+
+
+def probe_serve_costs(cfg, kind: str, B: int, S: int, mesh) -> dict:
+    """The costs of ``cfg``'s prefill or decode step from its 1- and
+    2-block traces, extrapolated to ``cfg.num_blocks``."""
+    nb = cfg.num_blocks
+    one, two = (trace_serve(specs_lib.serve_cell(at_depth(cfg, n), kind, B,
+                                                 S, mesh), mesh)
+                for n in (1, 2))
+    return dict(flops=_extrap(one["flops"], two["flops"], nb),
+                op_bytes=_extrap(one["op_bytes"], two["op_bytes"], nb),
+                coll_bytes=_extrap(one["coll"], two["coll"], nb),
+                regather_bytes=0, probe=dict(num_blocks=nb, micro=1, **{
+                    name: {k: r[k] for k in ("flops", "op_bytes", "coll")}
+                    for name, r in (("one", one), ("two", two))}))
+
+
 def _grad_bytes(params, micro: int) -> int:
     """The gradients of ``params``: in the params' dtype, or float32
     accumulators over several micro-batches."""
@@ -341,23 +424,26 @@ def run_cell(arch: str, shape: str, chips: int = 256, pods: int = 1,
              probe: bool = True) -> dict:
     """One cell on the production mesh of ``chips`` cards a pod (the
     module docstring): a record with ``memory``, ``fits_hbm`` and, when
-    traced (``probe``), the memory's traced terms and ``costs``; prefill
-    and decode cells are skips."""
+    traced (``probe``), the memory's traced terms and ``costs``."""
     sh = SHAPES[shape]
+    B, S = sh["global_batch"], sh["seq_len"]
     out = dict(arch=arch, shape=shape, mesh=_mesh_name(chips, pods),
                chips=chips * pods)
     with fake_group(chips * pods):
         mesh = mesh_lib.make_production_mesh(chips, pods)
-        try:
-            cell = specs_lib.build_cell(arch, shape, mesh)
-        except NotImplementedError as exc:
-            return dict(out, status="skip", reason=str(exc))
+        cell = specs_lib.build_cell(arch, shape, mesh)
         t0 = time.time()
-        mem = memory(cell, mesh, trace=probe)
-        costs = (probe_costs(cell.cfg, sh["global_batch"], sh["seq_len"],
-                             mesh, specs_lib.TRAIN_MICRO.get(arch, 1))
-                 if probe else None)
-    out.update(status="ok", t_trace=round(time.time() - t0, 1),
+        if cell.kind == "train":
+            mem = memory(cell, mesh, trace=probe)
+            costs = (probe_costs(cell.cfg, B, S, mesh,
+                                 specs_lib.TRAIN_MICRO.get(arch, 1))
+                     if probe else None)
+        else:
+            mem = serve_memory(cell, mesh, trace=probe)
+            costs = (probe_serve_costs(cell.cfg, cell.kind, B, S, mesh)
+                     if probe else None)
+    out.update(status="ok", kind=cell.kind,
+               t_trace=round(time.time() - t0, 1),
                micro=cell.micro_batches, memory=mem,
                fits_hbm=bool(mem["peak_device_bytes"] <= mesh_lib.HBM_BYTES))
     if costs is not None:

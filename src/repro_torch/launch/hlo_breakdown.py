@@ -1,5 +1,6 @@
 """Per-collective breakdown of one cell's probe: every collective of a
-traced train step at ``blocks`` blocks, with its op, mesh axis, dtype and
+traced train, prefill or decode step at ``blocks`` blocks, with its op,
+mesh axis, dtype and
 shape, its result bytes and the port's source frame (file:line under
 ``models/``; a collective of the backward names the frame that ran the
 backward), sorted by bytes, with the totals by op.
@@ -21,7 +22,6 @@ from repro_torch.configs.archs import ARCHS, SHAPES
 from repro_torch.launch import dryrun
 from repro_torch.launch import specs as specs_lib
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models.transformer import MESH_DECODE
 
 
 def breakdown(arch: str, shape: str, blocks: int = 2,
@@ -29,14 +29,17 @@ def breakdown(arch: str, shape: str, blocks: int = 2,
     """(bytes, op, axis, dtype[shape], source) of every collective of one
     step, largest first; also printed."""
     sh = SHAPES[shape]
-    if sh["kind"] != "train":
-        raise NotImplementedError(f"{arch} x {shape}: {MESH_DECODE}")
+    B, S = sh["global_batch"], sh["seq_len"]
     cfg = dryrun.at_depth(ARCHS[arch], blocks)
     with dryrun.fake_group(chips):
         mesh = make_production_mesh(chips)
-        cell = specs_lib.train_cell(cfg, sh["global_batch"], sh["seq_len"],
-                                    mesh, specs_lib.TRAIN_MICRO.get(arch, 1))
-        res = dryrun.trace_step(cell, mesh, cell.micro_batches)
+        if sh["kind"] == "train":
+            cell = specs_lib.train_cell(cfg, B, S, mesh,
+                                        specs_lib.TRAIN_MICRO.get(arch, 1))
+            res = dryrun.trace_step(cell, mesh, cell.micro_batches)
+        else:
+            res = dryrun.trace_serve(specs_lib.serve_cell(
+                cfg, sh["kind"], B, S, mesh), mesh)
     rows = sorted(((c["bytes"], c["op"], c["axis"],
                     f"{c['dtype']}{c['shape']}",
                     c["source"] + (" (backward)" if c["backward"] else ""))

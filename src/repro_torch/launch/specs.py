@@ -13,11 +13,20 @@ batch and sequence) returns the mesh train step
 accumulation of ``TRAIN_MICRO``) and its arguments as meta tensors: this
 rank's shards of the ``TrainState`` and its rows of the batch, the step's
 own inputs (the reference's ``Cell`` holds global ShapeDtypeStructs and
-the shardings its jit places them with).  Prefill and decode cells raise:
-the reference builds them only for its dry run, and the port runs neither
-over a mesh yet (ROADMAP item 13f, with the context-parallel cache specs
-of ``long_500k``).  MoE train cells run their layers expert-parallel over
-"model" (``moe.moe_ffn_ep``), as the reference's do.
+the shardings its jit places them with).  MoE train cells run their
+layers expert-parallel over "model" (``moe.moe_ffn_ep``), as the
+reference's do.
+
+Prefill and decode cells (``serve_cell``) are built as the reference
+builds them: the prefill step on this rank's shards of the params and its
+rows of the batch (batch over dp, heads over "model", the last position's
+logits vocabulary-sharded over "model"); the decode step on the params,
+this rank's shards of a ``DecodeState`` holding ``S - 1`` tokens
+(``prefill_len``), laid out by ``zoo.decode_state_specs`` (batch over dp,
+KV heads or else cache slots over "model"), and its token rows.  Where
+the batch cannot shard (``long_500k``, B = 1) the cache slots go over the
+dp axes instead (``_context_parallel_specs``: context parallelism).
+Decode keeps the FSDP weights sharded (``make_policy(kind="decode")``).
 """
 from __future__ import annotations
 
@@ -133,9 +142,55 @@ def train_cell(cfg: ModelConfig, B: int, S: int, mesh,
     return Cell(step, (state, batch), cfg, policy, "train", micro)
 
 
+def meta_decode_state(cfg: ModelConfig, B: int, S: int) -> zoo.DecodeState:
+    """``init_decode_state(cfg, B, S, prefill_len=S - 1)``'s tree as meta
+    tensors (traced under a fake-tensor mode: nothing is allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = zoo.init_decode_state(cfg, B, S, prefill_len=S - 1,
+                                     device="cpu")
+    return tree_map(lambda a: _meta(a.shape, a.dtype), fake)
+
+
+def _context_parallel_specs(cfg: ModelConfig, mesh, d_specs):
+    """long_500k: shard cache slots over the dp axes (batch=1)."""
+    dp = tuple(a for a in mesh.mesh_dim_names if a != "model")
+    tkv = ("model" if cfg.num_kv_heads and cfg.num_kv_heads
+           % axis_size(mesh, "model") == 0 else None)
+    return zoo.context_parallel_specs(dp, tkv, d_specs)
+
+
+def serve_cell(cfg: ModelConfig, kind: str, B: int, S: int, mesh) -> Cell:
+    """The mesh prefill (``kind`` "prefill": a global batch of ``B`` x
+    ``S`` tokens) or decode step (one token for each of ``B`` rows against
+    an ``S``-slot cache holding ``S - 1`` tokens) of ``cfg``, as the rank
+    at ``mesh.get_coordinate()``: its shards of the params and the state
+    and its rows of the inputs, as meta tensors."""
+    policy = make_policy(mesh, B, kind)
+    names = tuple(mesh.mesh_dim_names)
+    coord = dict(zip(names, mesh.get_coordinate()))
+    size = {a: axis_size(mesh, a) for a in names}
+    params = shard_tree(meta_params(cfg), tf.param_specs(cfg, policy),
+                        coord, size)
+    rows = B // math.prod(size[a] for a in policy.dp)
+    ins = {k: _meta((rows,) + tuple(v.shape[1:]), v.dtype)
+           for k, v in model_inputs(cfg, B, S, kind).items()}
+    if kind == "prefill":
+        return Cell(zoo.make_prefill_step(cfg, policy=policy),
+                    (params, ins), cfg, policy, "prefill")
+    d_specs = zoo.decode_state_specs(cfg, policy)
+    if not policy.dp:      # batch too small to shard -> context parallel
+        d_specs = _context_parallel_specs(cfg, mesh, d_specs)
+    state = shard_tree(meta_decode_state(cfg, B, S), d_specs, coord, size)
+    return Cell(zoo.make_decode_step(cfg, policy=policy),
+                (params, state, ins["token"]), cfg, policy, "decode")
+
+
 def build_cell(arch: str, shape: str, mesh) -> Cell:
     sh = SHAPES[shape]
     if sh["kind"] != "train":
-        raise NotImplementedError(f"{arch} x {shape}: {tf.MESH_DECODE}")
+        return serve_cell(ARCHS[arch], sh["kind"], sh["global_batch"],
+                          sh["seq_len"], mesh)
     return train_cell(ARCHS[arch], sh["global_batch"], sh["seq_len"], mesh,
                       TRAIN_MICRO.get(arch, 1))

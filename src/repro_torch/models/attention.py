@@ -22,13 +22,34 @@ row-parallel ``wo`` output all-reduced over tp.  When the query heads
 divide and the KV heads do not (GQA with few KV heads), ``wk`` and ``wv``
 are replicated and each rank computes the KV heads its query heads read
 (their *global* groups).  When the query heads do not divide, the layer is
-replicated over tp.  Decode over a mesh is not ported (ROADMAP).
+replicated over tp.
+
+Decode over a mesh runs on this rank's shard of the cache, laid out as
+``zoo.serving_state_specs`` says, in one of three layouts:
+
+* (a) KV heads over tp: this rank's heads on its cache, ``wo``
+  row-parallel and all-reduced over tp;
+* (b) cache slots over tp (the KV heads do not divide): every tp rank
+  attends with every query head (the local ones all-gathered) to its
+  block of slots;
+* (c) cache slots over the dp axes (context parallelism: ``long_500k``'s
+  B = 1 leaves the batch unsharded), KV heads over tp where they divide.
+
+Over sharded slots the new key and value go to slot ``t % W`` on the rank
+that owns it (the slots are cut into contiguous blocks, as the reference
+shards them), and the softmax is combined over the slot axes
+(``_combine_slots``): the float32 scores' max all-reduced, the
+exponentials' sum all-reduced, then the weighted values.  A shard whose
+slots are all masked adds exact zeros (``exp(NEG_INF - max)``); the
+current token's slot is always valid, so the max is finite.  The
+projections keep their FSDP weights sharded (``parallel.dp_dense``).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from . import parallel
@@ -144,11 +165,18 @@ def _local_weights(p: AttnParams, cfg: ModelConfig, policy: ShardingPolicy):
     return local, per_head, split
 
 
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype))
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bshk,hkd->bsd", out, wo.to(out.dtype))
+
+
 def _project_qkv(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, per_head: list | None = None):
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
+                 positions: torch.Tensor, per_head: list | None = None,
+                 proj=_proj):
+    q, k, v = proj(x, p.wq), proj(x, p.wk), proj(x, p.wv)
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     if p.q_norm is not None:
@@ -256,26 +284,145 @@ def _chunked_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
-                     cache: KVCache, window: int | None = None
+                     cache: KVCache, window: int | None = None, *,
+                     policy: ShardingPolicy = NO_SHARDING
                      ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode against the (ring) cache.  x: (B, 1, D).
 
     The new key and value go to slot ``t % W`` of ``cache`` in place (and
     the slot's position, and ``length`` + 1); the returned cache holds the
-    same tensors."""
+    same tensors.  Under a policy, ``x`` is this rank's batch rows and
+    ``cache`` its shard (module docstring)."""
+    if policy.enabled:
+        return _mesh_decode_attention(p, cfg, x, cache, window, policy)
     t = cache.length                                # absolute position
     q, k_new, v_new = _project_qkv(p, cfg, x, t.reshape(1))
-    W = cache.k.shape[1]
-    slot = (t % W).long().reshape(1)
+    _write(cache, k_new, v_new, t)
+    out = _sdpa(q, cache.k, cache.v, _valid(cache, t, window)[None, None, :],
+                cfg)
+    cache.length.add_(1)
+    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype)), cache
+
+
+def _write(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+           t: torch.Tensor) -> None:
+    """The new key, value and position into slot ``t % W`` of ``cache``."""
+    slot = (t % cache.k.shape[1]).long().reshape(1)
     cache.k.index_copy_(1, slot, k_new.to(cache.k.dtype))
     cache.v.index_copy_(1, slot, v_new.to(cache.v.dtype))
     cache.pos.index_fill_(0, slot, t)
+
+
+def _valid(cache: KVCache, t: torch.Tensor, window: int | None):
+    """(W,) bool: the slots a query at ``t`` attends to."""
     valid = (cache.pos >= 0) & (cache.pos <= t)
     if window is not None:
         valid &= cache.pos > t - window
-    out = _sdpa(q, cache.k, cache.v, valid[None, None, :], cfg)
+    return valid
+
+
+def decode_layout(cfg: ModelConfig, policy: ShardingPolicy
+                  ) -> tuple[tuple[str, ...], bool]:
+    """(the mesh axes a decode cache's slots are sharded over, whether its
+    KV heads are sharded over tp) under ``policy``, as
+    ``zoo.serving_state_specs`` lays the cache out: KV heads over tp where
+    they divide, else slots over tp, when the batch is sharded over dp;
+    slots over every other mesh axis when it is not (context
+    parallelism)."""
+    kv = policy.shard_if(cfg.num_kv_heads) is not None
+    if policy.dp:
+        return ((policy.tp,) if policy.tp and not kv else ()), kv
+    return tuple(a for a in policy.mesh.mesh_dim_names if a != policy.tp), kv
+
+
+def _write_slot(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                t: torch.Tensor, slots: tuple, ctx) -> None:
+    """Slot ``t % W`` of the whole cache written with the new key, value
+    and position on the rank whose block of slots holds it; the other
+    ranks write their own values back (no host sync decides who owns
+    it)."""
+    n, r = parallel.block_of(slots, ctx)
+    Wl = cache.k.shape[1]
+    local = t % (Wl * n) - r * Wl
+    hit = (local >= 0) & (local < Wl)
+    idx = local.clamp(0, Wl - 1).long().reshape(1)
+    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        buf.index_copy_(1, idx, torch.where(hit, new.to(buf.dtype),
+                                            buf.index_select(1, idx)))
+    cache.pos.index_copy_(0, idx, torch.where(
+        hit, t, cache.pos.index_select(0, idx)))
+
+
+def _combine_slots(logits: torch.Tensor, v: torch.Tensor, axes: tuple,
+                   ctx, dtype) -> torch.Tensor:
+    """The softmax of float32 ``logits`` (B, Hkv, g, Sq, W_loc), masked
+    with ``NEG_INF``, over slots sharded over ``axes``, times the values
+    ``v`` (B, W_loc, Hkv, hd): the max all-reduced, this shard's
+    exponentials summed and all-reduced, its normalised weights (cast to
+    ``dtype``, as ``_sdpa`` casts them) times its values, all-reduced in
+    float32.  -> (B, Sq, Hkv, g, hd) in ``dtype``."""
+    m = logits.amax(-1, keepdim=True)
+    parallel.all_reduce_(m, axes, ctx, dist.ReduceOp.MAX)
+    e = torch.exp(logits - m)
+    s = e.sum(-1, keepdim=True)
+    parallel.all_reduce_(s, axes, ctx)
+    w = (e / s).to(dtype)
+    dt = torch.promote_types(w.dtype, v.dtype)
+    o = torch.einsum("bhgqs,bshk->bqhgk", w.to(dt), v.to(dt)).float()
+    return parallel.all_reduce_(o, axes, ctx).to(dtype)
+
+
+def _sdpa_slots(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                valid: torch.Tensor, cfg: ModelConfig, axes: tuple,
+                ctx) -> torch.Tensor:
+    """``_sdpa``'s recipe against this rank's block of slots (``valid``:
+    (W_loc,) bool), combined over ``axes`` (``_combine_slots``)."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    dt = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, hd).to(dt)
+    logits = torch.einsum("bqhgk,bshk->bhgqs", qg, k.to(dt)).float()
+    logits = logits * hd ** -0.5
+    if cfg.attn_softcap:
+        logits = cfg.attn_softcap * torch.tanh(logits / cfg.attn_softcap)
+    logits = torch.where(valid, logits, NEG_INF)
+    return _combine_slots(logits, v, axes, ctx, q.dtype).reshape(
+        B, Sq, H, hd)
+
+
+def _mesh_decode_attention(p: AttnParams, cfg: ModelConfig,
+                           x: torch.Tensor, cache: KVCache,
+                           window: int | None, policy: ShardingPolicy):
+    """``decode_attention`` on this rank's rows and cache shard (module
+    docstring: layouts (a), (b), (c)).  Where the KV heads are whole on
+    every tp rank and the query heads split, the local query heads are
+    all-gathered over tp, every head attends, and this rank's heads go
+    into the row-parallel ``wo``."""
+    ctx = policy.ctx
+    slots, kv_split = decode_layout(cfg, policy)
+    live = tuple(a for a in slots if ctx.size[a] > 1)
+    split = policy.shard_if(cfg.num_heads) is not None and ctx.tp_size > 1
+    every_head = split and not kv_split
+    t = cache.length
+    q, k_new, v_new = _project_qkv(
+        p, cfg, x, t.reshape(1), proj=lambda a, w: parallel.dp_dense(
+            _proj, a, w, ctx, contract_dim=-1))
+    if every_head:
+        q = parallel.tp_gather(q, 2, ctx)
+    if live:
+        _write_slot(cache, k_new, v_new, t, slots, ctx)
+    else:
+        _write(cache, k_new, v_new, t)
+    valid = _valid(cache, t, window)
+    if live:
+        out = _sdpa_slots(q, cache.k, cache.v, valid, cfg, live, ctx)
+    else:
+        out = _sdpa(q, cache.k, cache.v, valid[None, None, :], cfg)
     cache.length.add_(1)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype)), cache
+    if every_head:
+        out = parallel.tp_slice(out, 2, ctx)
+    y = parallel.dp_dense(_out_proj, out, p.wo, ctx, out_dim=-1)
+    return (parallel.reduce_out(y, ctx) if split else y), cache
 
 
 def cross_kv(p: AttnParams, cfg: ModelConfig, enc: torch.Tensor, *,
@@ -297,7 +444,11 @@ def cross_attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     """Decoder -> encoder cross attention (whisper); ``enc_kv`` precomputed
     (``cross_kv``).  Long decoder sequences are q-chunked, each chunk
     recomputed in the backward under autograd.  Under a policy, this rank's
-    heads, the output all-reduced over tp."""
+    heads, the output all-reduced over tp; in decode (``weight_gather``
+    off) ``enc_kv`` is the decode state's, whose KV heads are this rank's
+    where they divide over tp and whole otherwise."""
+    if policy.enabled and not policy.weight_gather:
+        return _mesh_decode_cross(p, cfg, x, enc_kv, policy)
     p, _, split = _local_weights(p, cfg, policy)
     if split:
         x = parallel.copy_in(x, policy.ctx)
@@ -313,6 +464,27 @@ def cross_attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
                          for s in range(0, Sq, Q_CHUNK)], dim=1)
     y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
     return parallel.reduce_out(y, policy.ctx) if split else y
+
+
+def _mesh_decode_cross(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
+                       enc_kv, policy: ShardingPolicy) -> torch.Tensor:
+    """``cross_attention`` of one decode token on this rank's rows and
+    heads, the FSDP weights kept sharded (``parallel.dp_dense``)."""
+    ctx = policy.ctx
+    tq = policy.shard_if(cfg.num_heads)
+    tkv = policy.shard_if(cfg.num_kv_heads)
+    split = tq is not None and ctx.tp_size > 1
+    q = parallel.dp_dense(_proj, x, p.wq, ctx, contract_dim=-1)
+    if p.q_norm is not None:
+        q = rms_norm(p.q_norm, q, cfg.norm_eps, False)
+    k, v = (a.to(x.dtype) for a in enc_kv)
+    if split and tkv is None:     # the state holds every KV head
+        kv, per_head = _kv_heads(cfg.num_heads, cfg.num_kv_heads, tq, tkv,
+                                 ctx)
+        k, v = _per_head(k[:, :, kv], v[:, :, kv], per_head)
+    out = _sdpa(q, k, v, None, cfg)
+    y = parallel.dp_dense(_out_proj, out, p.wo, ctx, out_dim=-1)
+    return parallel.reduce_out(y, ctx) if split else y
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

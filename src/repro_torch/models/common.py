@@ -78,9 +78,10 @@ class ShardingPolicy:
         the residual replicated over tp whatever it says (the same values;
         sequence parallelism is ROADMAP item 13g).
     mesh: the ``DeviceMesh``.  ``weight_gather``: gather FSDP weights
-        before their matmuls (train and prefill; the reference turns it off
-        for decode).  The port runs no decode over a mesh (ROADMAP item
-        13f), so ``gather_fsdp`` raises when it is off.
+        before their matmuls (train and prefill).  The reference turns it
+        off for decode, where a token's activations are KBs and the
+        weights GBs: the decode layers then keep each FSDP weight sharded
+        and move the activations instead (``parallel.dp_dense``).
     """
 
     dp: tuple[str, ...] = ()
@@ -167,13 +168,11 @@ class ShardingPolicy:
         gradient over dp: the reference's ZeRO-3 flow.  The reference
         gathers only the weights GSPMD would otherwise partial-sum; the
         port holds local shards, so every dp-sharded weight is gathered
-        before its use.  ``w`` unchanged without a mesh."""
+        before its use.  ``w`` unchanged without a mesh.  The decode
+        layers (``weight_gather`` off) never call it: they contract with
+        the dp shard where it lies (``parallel.dp_dense``)."""
         if not self.enabled:
             return w
-        if not self.weight_gather:
-            raise NotImplementedError(
-                "a policy without weight_gather is the reference's decode "
-                "over a mesh: ROADMAP item 13f, not ported")
         from .parallel import reshard
         return reshard(w, stored, spec, self.ctx)
 
@@ -379,7 +378,17 @@ def remat(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def tree_stack(trees):
-    """Stack equal-shaped trees along a new leading axis (per-slot layers
-    into the ``(num_blocks, ...)`` layout)."""
-    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+def stack_blocks(make, n: int):
+    """``make(0)``, ..., ``make(n - 1)`` (equal-shaped trees, made in that
+    order) stacked along a new leading axis (per-slot layers into the
+    ``(num_blocks, ...)`` layout).  Each tree is copied into the stacked
+    leaves as it is made and then dropped, so the ``n`` trees and their
+    stack are never alive together."""
+    first = make(0)
+    out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    for b in range(n):
+        tree = first if b == 0 else make(b)
+        for dst, src in zip(tree_leaves(out), tree_leaves(tree)):
+            dst[b].copy_(src)
+        first = tree = None
+    return out

@@ -12,7 +12,8 @@ Over a mesh, ``shard_params`` and ``shard_train_state`` take a rank's
 shards of whole trees (laid out by ``transformer.param_specs``), and
 ``gather_params`` / ``gather_train_state`` all-gather a rank's shards back
 into whole trees, so a mesh run compares with the reference's one-device
-run tree by tree.
+run tree by tree; ``shard_decode_state`` and ``gather_decode_state`` do
+the same for a ``DecodeState`` (laid out by ``zoo.serving_state_specs``).
 """
 from __future__ import annotations
 
@@ -189,3 +190,20 @@ def gather_train_state(state: zoo.TrainState, specs,
         adamw.OptState(*(gather_params(t, specs, mesh)
                          for t in (opt.master, opt.m, opt.v)),
                        step=opt.step.clone()))
+
+
+def shard_decode_state(cfg: ModelConfig, state, specs, mesh, rank: int,
+                       device=None) -> zoo.DecodeState:
+    """Rank ``rank``'s shards of a whole decode state: the reference's
+    flattened ``DecodeState`` (numpy, ``decode_state_from_numpy``'s keys,
+    put on ``device``) or a port ``DecodeState``, laid out by ``specs``;
+    copies, so the whole state can be freed."""
+    if isinstance(state, dict):
+        state = decode_state_from_numpy(cfg, state, device)
+    return shard_params(state, specs, mesh, rank)
+
+
+def gather_decode_state(state: zoo.DecodeState, specs,
+                        mesh) -> zoo.DecodeState:
+    """The whole ``DecodeState`` of this rank's shards (collective)."""
+    return gather_params(state, specs, mesh)

@@ -78,13 +78,22 @@ def ep_capacity(tokens: int, cfg: ModelConfig) -> int:
     return max(1, int(max(1, -(-tokens * K // E)) * cfg.capacity_factor))
 
 
+def _router_logits(xt: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    return xt.float() @ router
+
+
 def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
           C: int) -> Routing:
     """The routings of the tokens ``xt`` (T, D) into buffers of capacity
     ``C``: a routing's rank in its expert's buffer is the count of earlier
     routings to the same expert."""
+    return route_logits(_router_logits(xt, router), cfg, C)
+
+
+def route_logits(logits: torch.Tensor, cfg: ModelConfig, C: int) -> Routing:
+    """``route`` from the router's float32 logits (T, E)."""
     E, K = cfg.num_experts, cfg.num_experts_per_tok
-    probs = torch.softmax(xt.float() @ router, dim=-1)             # (T, E)
+    probs = torch.softmax(logits, dim=-1)                          # (T, E)
     gate_vals, gate_idx = top_k(probs, K)                          # (T, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     flat_e = gate_idx.reshape(-1)
@@ -107,12 +116,29 @@ def dispatch(xt: torch.Tensor, r: Routing, E: int, C: int) -> torch.Tensor:
     return xe.index_put_((r.expert, r.slot), src, accumulate=True)
 
 
+def _up(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("ecd,edf->ecf", xe, w.to(xe.dtype))
+
+
+def _down(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("ecf,efd->ecd", h, w.to(h.dtype))
+
+
 def experts(xe: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-            w_down: torch.Tensor) -> torch.Tensor:
-    """Each expert's SwiGLU on its buffer: (E, C, D) -> (E, C, D)."""
-    h = torch.einsum("ecd,edf->ecf", xe, w_gate.to(xe.dtype))
-    u = torch.einsum("ecd,edf->ecf", xe, w_up.to(xe.dtype))
-    return torch.einsum("ecf,efd->ecd", F.silu(h) * u, w_down.to(xe.dtype))
+            w_down: torch.Tensor, ctx=None) -> torch.Tensor:
+    """Each expert's SwiGLU on its buffer: (E, C, D) -> (E, C, D).  With
+    ``ctx`` (decode over a mesh) the weights are FSDP shards, used where
+    they lie (``parallel.dp_dense`` over the buffers' slots)."""
+    if ctx is None:
+        up, down = _up, _down
+    else:
+        up = lambda a, w: parallel.dp_dense(  # noqa: E731
+            _up, a, w, ctx, contract_dim=-1, rows=1)
+        down = lambda a, w: parallel.dp_dense(  # noqa: E731
+            _down, a, w, ctx, out_dim=-1, rows=1)
+    h = up(xe, w_gate)
+    u = up(xe, w_up)
+    return down(F.silu(h) * u, w_down)
 
 
 def combine(ye: torch.Tensor, r: Routing, T: int) -> torch.Tensor:
@@ -183,19 +209,25 @@ def moe_ffn_ep(p: MoEParams, cfg: ModelConfig, x: torch.Tensor,
     The experts' weights are gathered over the FSDP axes (their gradients
     reduce-scattered over dp; the all-to-all makes them complete over tp).
     The router is gathered too, and enters through ``copy_in``: every tp
-    rank reads it with its own tokens, so each holds a partial gradient."""
+    rank reads it with its own tokens, so each holds a partial gradient.
+    In decode (``weight_gather`` off) the router and the experts keep
+    their FSDP shards (``parallel.dp_dense``)."""
     ctx = policy.ctx
     n = ctx.tp_size
     E = cfg.num_experts
     if E % n:
         raise ValueError(f"{E} experts do not divide over tp = {n}")
-    sp = moe_specs(cfg, policy)
-    router = parallel.copy_in(
-        policy.gather_fsdp(p.router, P(None, None), sp.router), ctx)
-    own = P(policy.tp, None, None)
-    wg = policy.gather_fsdp(p.w_gate, own, sp.w_gate)
-    wu = policy.gather_fsdp(p.w_up, own, sp.w_up)
-    wd = policy.gather_fsdp(p.w_down, own, sp.w_down)
+    decode = not policy.weight_gather
+    if decode:
+        router, wg, wu, wd = p.router, p.w_gate, p.w_up, p.w_down
+    else:
+        sp = moe_specs(cfg, policy)
+        router = parallel.copy_in(
+            policy.gather_fsdp(p.router, P(None, None), sp.router), ctx)
+        own = P(policy.tp, None, None)
+        wg = policy.gather_fsdp(p.w_gate, own, sp.w_gate)
+        wu = policy.gather_fsdp(p.w_up, own, sp.w_up)
+        wd = policy.gather_fsdp(p.w_down, own, sp.w_down)
 
     S, D = x.shape[1], x.shape[2]
     seq = S % n == 0 and S > 1
@@ -206,8 +238,13 @@ def moe_ffn_ep(p: MoEParams, cfg: ModelConfig, x: torch.Tensor,
     T = Bl * Sl
     C = ep_capacity(T, cfg)
     xt = xl.reshape(T, D)
-    r = route(xt, router, cfg, C)
-    ye = experts(_to_owners(dispatch(xt, r, E, C), ctx), wg, wu, wd)
+    if decode:
+        r = route_logits(parallel.dp_dense(_router_logits, xt, router, ctx,
+                                           contract_dim=-1), cfg, C)
+    else:
+        r = route(xt, router, cfg, C)
+    ye = experts(_to_owners(dispatch(xt, r, E, C), ctx), wg, wu, wd,
+                 ctx if decode else None)
     y = combine(_from_owners(ye, ctx), r, T).reshape(Bl, Sl, D)
     if seq:
         return parallel.tp_gather(y, 1, ctx)

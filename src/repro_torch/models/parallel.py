@@ -32,6 +32,15 @@ whose backward is its transpose:
   all-reduce; max, sum of exponentials and the gold logit all-reduced,
   the padded slots masked on their own shard).
 
+Serving records no graph, and decode keeps its weights where they lie
+(the reference's ``weight_gather=False``): ``dp_dense`` multiplies this
+rank's batch rows by a weight sharded over the dp axes (FSDP) without
+gathering the weight.  It all-gathers the rows over dp, multiplies them
+by this rank's slice of the weight (the matching slice of the contracted
+dim, or the whole rows into this rank's block of the output's dim) and
+reduce-scatters the product back to the batch rows: activation bytes
+move, never weight bytes.
+
 An axis of size 1 runs no collective, so a ``(1, 1)`` mesh runs the same
 arithmetic as one device.  A dim sharded over several axes (``("pod",
 "data")``) is gathered over the minor axis first and reduce-scattered over
@@ -253,14 +262,59 @@ def reshard(w: torch.Tensor, stored: P, wanted: P, ctx: MeshContext,
     return w
 
 
+def block_of(axes, ctx: MeshContext) -> tuple[int, int]:
+    """(number of blocks, this rank's block) of a dim sharded over
+    ``axes``, the first axis major."""
+    n, k = 1, 0
+    for a in axes:
+        n, k = n * ctx.size[a], k * ctx.size[a] + ctx.coord[a]
+    return n, k
+
+
 def dp_rows(batch: dict, ctx: MeshContext) -> dict:
     """This rank's rows of a global batch: its block of the leading dim
     over the dp axes (every row when the policy has no dp)."""
-    n, k = 1, 0
-    for a in ctx.dp:
-        n, k = n * ctx.size[a], k * ctx.size[a] + ctx.coord[a]
+    n, k = block_of(ctx.dp, ctx)
     return {key: v.narrow(0, k * (v.shape[0] // n), v.shape[0] // n)
             for key, v in batch.items()}
+
+
+@torch.no_grad()
+def dp_dense(op, x: torch.Tensor, w: torch.Tensor, ctx: MeshContext, *,
+             contract_dim: int | None = None, out_dim: int | None = None,
+             rows: int = 0) -> torch.Tensor:
+    """``op(x, w)`` for ``x`` this rank's rows (dim ``rows``) of a batch
+    sharded over the dp axes and ``w`` this rank's FSDP shard of a weight,
+    the weight never gathered (module docstring).  The weight's dp-sharded
+    dim is either contracted with ``x``'s dim ``contract_dim`` (the rows
+    all-gathered over dp are cut to this rank's block of that dim, and the
+    partial products, summed in float32, reduce-scattered back to the
+    rows), or it is the output's dim ``out_dim`` (the gathered rows'
+    product is this rank's block of that dim; zero-padded to the whole dim
+    and reduce-scattered).  ``op(x, w)`` as it stands where no dp axis is
+    larger than one."""
+    axes = _live(ctx.dp, ctx)
+    if not axes:
+        return op(x, w)
+    n, k = block_of(ctx.dp, ctx)
+    for a in reversed(axes):
+        x = _all_gather(x, rows, a, ctx)
+    if contract_dim is not None:
+        m = x.shape[contract_dim] // n
+        x = x.narrow(contract_dim, k * m, m)
+    y = op(x, w)
+    dt = y.dtype
+    if out_dim is not None:
+        shape = list(y.shape)
+        m, shape[out_dim] = shape[out_dim], shape[out_dim] * n
+        z = y.new_zeros(shape)
+        z.narrow(out_dim, k * m, m).copy_(y)
+        y = z
+    else:
+        y = y.float()
+    for a in axes:
+        y = _reduce_scatter(y, rows, a, ctx)
+    return y.to(dt)
 
 
 def vocab_embed(w: torch.Tensor, tokens: torch.Tensor,

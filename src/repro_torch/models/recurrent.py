@@ -30,8 +30,15 @@ head) are all-gathered over tp and ``B``, ``C`` computed whole on every
 rank, so the ``C . B`` contraction needs no all-reduce; ROADMAP lists the
 N-sharded version.  When the heads do not divide, SSD is replicated over
 tp (``w_B`` and ``w_C`` still gathered); a channel split that cuts a head
-(``H * P`` divides, ``H`` does not) raises.  Decode over a mesh is not
-ported (ROADMAP).
+(``H * P`` divides, ``H`` does not) raises.
+
+Decode over a mesh (a policy without ``weight_gather``) runs the same
+split on this rank's shard of the state: the RG-LRU's ``h`` and ``conv``
+on its channels, the SSD's ``h`` on its heads.  The FSDP weights stay
+sharded (``parallel.dp_dense``), and the SSD's ``B`` and ``C``, where
+their ``N`` columns are sharded over tp, are all-gathered as activations.
+A state the reference shards by ``N`` (heads that do not divide, ``N``
+that does) is the N-sharded SSD of ROADMAP item 13h, and raises.
 """
 from __future__ import annotations
 
@@ -154,16 +161,26 @@ def rglru(p: RGLRUParams, cfg: ModelConfig, x: torch.Tensor,
           policy: ShardingPolicy = NO_SHARDING):
     """x: (B, S, D) -> (B, S, D), new_state.  Under a policy, this rank's
     channels (module docstring)."""
-    split = False
+    split = decode = False
+    in_proj = lambda a, w: torch.einsum(  # noqa: E731
+        "bsd,dr->bsr", a, w.to(a.dtype))
+    out_proj = lambda a, w: torch.einsum(  # noqa: E731
+        "bsr,rd->bsd", a, w.to(a.dtype))
     if policy.enabled:
         sp, ctx = rglru_specs(cfg, policy), policy.ctx
-        p = p._replace(
-            w_in=policy.gather_fsdp(p.w_in, P(None, policy.tp), sp.w_in),
-            w_out=policy.gather_fsdp(p.w_out, P(policy.tp, None), sp.w_out))
         split = ctx.tp_size > 1
-        if split:
-            x = parallel.copy_in(x, ctx)
-    u = torch.einsum("bsd,dr->bsr", x, p.w_in.to(x.dtype))
+        decode = not policy.weight_gather
+        if not decode:
+            p = p._replace(
+                w_in=policy.gather_fsdp(p.w_in, P(None, policy.tp), sp.w_in),
+                w_out=policy.gather_fsdp(p.w_out, P(policy.tp, None),
+                                         sp.w_out))
+            if split:
+                x = parallel.copy_in(x, ctx)
+    if decode:
+        u = parallel.dp_dense(in_proj, x, p.w_in, ctx, contract_dim=-1)
+    else:
+        u = in_proj(x, p.w_in)
     u, conv_tail = _causal_conv(u, p.conv_w.to(u.dtype), p.conv_b.to(u.dtype),
                                 state.conv if state is not None else None)
     uf = u.float()
@@ -173,7 +190,11 @@ def rglru(p: RGLRUParams, cfg: ModelConfig, x: torch.Tensor,
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
     h = _lru_scan(a, gated, state.h if state is not None else None)
-    y = torch.einsum("bsr,rd->bsd", h.to(x.dtype), p.w_out.to(x.dtype))
+    if decode:
+        y = parallel.dp_dense(out_proj, h.to(x.dtype), p.w_out, ctx,
+                              out_dim=-1)
+    else:
+        y = out_proj(h.to(x.dtype), p.w_out)
     if split:
         y = parallel.reduce_out(y, policy.ctx)
     return y, RGLRUState(h=h[:, -1], conv=conv_tail)
@@ -331,6 +352,29 @@ def _ssd_local(p: SSDParams, cfg: ModelConfig, policy: ShardingPolicy):
         w_out=g(p.w_out, sp.w_out, P(thp, None))), split
 
 
+def _ssd_decode_local(p: SSDParams, cfg: ModelConfig,
+                      policy: ShardingPolicy):
+    """The decode step's view of this rank's ``SSDParams`` (the weights'
+    FSDP shards as they lie, the per-head vectors sliced to its heads),
+    whether the heads are partitioned over tp, and whether ``B`` and ``C``
+    come out sharded over tp by ``N``."""
+    H, Pd, N = ssd_dims(cfg)
+    ctx = policy.ctx
+    th, thp = policy.shard_if(H), policy.shard_if(H * Pd)
+    if ctx.tp_size > 1 and th is None and (
+            thp is not None or policy.shard_if(N) is not None):
+        raise NotImplementedError(
+            f"SSD decode over tp = {ctx.tp_size}: its {H} heads do not "
+            "divide, and the reference then shards the state by N or cuts "
+            "a head: the N-sharded SSD is ROADMAP item 13h")
+    split = th is not None and ctx.tp_size > 1
+    heads = (lambda v: parallel.tp_slice(v, 0, ctx)) if split else \
+        (lambda v: v)
+    return (p._replace(log_a=heads(p.log_a), d_skip=heads(p.d_skip),
+                       dt_bias=heads(p.dt_bias)), split,
+            split and policy.shard_if(N) is not None)
+
+
 def _gated_norm_split(w: torch.Tensor, g: torch.Tensor, eps: float,
                       width: int, ctx) -> torch.Tensor:
     """``rms_norm(w, g)`` over ``width`` channels of which this rank holds
@@ -348,17 +392,29 @@ def ssd(p: SSDParams, cfg: ModelConfig, x: torch.Tensor,
     this rank's heads (module docstring)."""
     B, S, D = x.shape
     H, P, N = ssd_dims(cfg)
-    width, split = H * P, False
+    width, split, decode = H * P, False, False
+    proj = lambda a, w: torch.einsum(  # noqa: E731
+        "bsd,di->bsi", a, w.to(a.dtype))
     if policy.enabled:
-        p, split = _ssd_local(p, cfg, policy)
+        decode = not policy.weight_gather
+        if decode:
+            p, split, n_split = _ssd_decode_local(p, cfg, policy)
+            ctx = policy.ctx
+            dd = lambda w: parallel.dp_dense(  # noqa: E731
+                proj, x, w, ctx, contract_dim=-1)
+        else:
+            p, split = _ssd_local(p, cfg, policy)
+            if split:
+                x = parallel.copy_in(x, policy.ctx)
         H = p.w_dt.shape[-1]
-        if split:
-            x = parallel.copy_in(x, policy.ctx)
-    z = torch.einsum("bsd,di->bsi", x, p.w_z.to(x.dtype))
-    xh = torch.einsum("bsd,di->bsi", x, p.w_x.to(x.dtype))
-    Bm = torch.einsum("bsd,dn->bsn", x, p.w_B.to(x.dtype))
-    Cm = torch.einsum("bsd,dn->bsn", x, p.w_C.to(x.dtype))
-    dt = torch.einsum("bsd,dh->bsh", x, p.w_dt.to(x.dtype))
+    if decode:
+        z, xh, Bm, Cm, dt = (dd(w) for w in (p.w_z, p.w_x, p.w_B, p.w_C,
+                                              p.w_dt))
+        if n_split:     # N columns over tp: gather the activations
+            Bm, Cm = (parallel.tp_gather(a, 2, ctx) for a in (Bm, Cm))
+    else:
+        z, xh, Bm, Cm, dt = (proj(x, w) for w in (p.w_z, p.w_x, p.w_B,
+                                                  p.w_C, p.w_dt))
     xh = xh.reshape(B, S, H, P)
     dt = F.softplus(dt.float() + p.dt_bias)                  # (B,S,H)
     A = -torch.exp(p.log_a)                                  # (H,) < 0
@@ -391,7 +447,10 @@ def ssd(p: SSDParams, cfg: ModelConfig, x: torch.Tensor,
     else:
         y = rms_norm(p.norm_w, y.to(x.dtype) * F.silu(z), cfg.norm_eps,
                      False)
-    out = torch.einsum("bsi,id->bsd", y, p.w_out.to(x.dtype))
+    out_proj = lambda a, w: torch.einsum(  # noqa: E731
+        "bsi,id->bsd", a, w.to(a.dtype))
+    out = (parallel.dp_dense(out_proj, y, p.w_out, policy.ctx, out_dim=-1)
+           if decode else out_proj(y, p.w_out))
     if split:
         out = parallel.reduce_out(out, policy.ctx)
     return out, SSDState(h=h_last)

@@ -21,7 +21,11 @@ embedding and the logits vocab-parallel over tp, attention and the MLP
 Megatron-style (column-parallel in, row-parallel out, all-reduced), each
 FSDP-sharded weight gathered over dp before its use
 (``models/parallel.py``), MoE layers expert-parallel over tp
-(``moe.moe_ffn_ep``).  Decode over a mesh (ROADMAP item 13f) raises.
+(``moe.moe_ffn_ep``).  ``forward`` with no autograd is the mesh prefill,
+and ``lm_logits`` gives this rank's vocabulary block.  Decode over a mesh
+(a policy without ``weight_gather``) keeps the FSDP weights sharded and
+moves the batch rows instead (``parallel.dp_dense``), on this rank's shard
+of the decode state (``attention.decode_attention``).
 """
 from __future__ import annotations
 
@@ -36,10 +40,7 @@ from . import parallel
 from . import recurrent as rec_lib
 from .common import (NO_SHARDING, LayerSpec, ModelConfig, P, ShardingPolicy,
                      dense, init_dense, padded_vocab, remat, rms_norm, scalar,
-                     softcap, spec_map, tree_map, tree_stack, tree_unstack)
-
-MESH_DECODE = ("decode and prefill over a mesh (context-parallel decode "
-               "among them) are ROADMAP item 13f, not ported")
+                     softcap, spec_map, stack_blocks, tree_map, tree_unstack)
 
 
 class MLPParams(NamedTuple):
@@ -65,8 +66,19 @@ def mlp_specs(cfg: ModelConfig, policy: ShardingPolicy) -> MLPParams:
 def mlp(p: MLPParams, x: torch.Tensor, *,
         policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """SwiGLU.  Under a policy: column-parallel ``w_gate`` / ``w_up`` and
-    row-parallel ``w_down`` on this rank's slice of F, all-reduced."""
+    row-parallel ``w_down`` on this rank's slice of F, all-reduced (in
+    decode, on the FSDP shards: ``parallel.dp_dense``)."""
     split = False
+    if policy.enabled and not policy.weight_gather:
+        ctx = policy.ctx
+
+        def dd(w, a, **kw):
+            return parallel.dp_dense(lambda u, v: dense(v, u), a, w, ctx,
+                                     **kw)
+
+        y = dd(p.w_down, F.silu(dd(p.w_gate, x, contract_dim=-1))
+               * dd(p.w_up, x, contract_dim=-1), out_dim=-1)
+        return parallel.reduce_out(y, ctx) if ctx.tp_size > 1 else y
     if policy.enabled:
         # p_mlp_in shards F over tp outright (a shard exists only where F
         # divides), so the reference's shard_if(F) is tp
@@ -128,15 +140,13 @@ def apply_layer(p: LayerParams, cfg: ModelConfig, spec: LayerSpec,
                 decode: bool = False, enc_kv=None, *,
                 policy: ShardingPolicy = NO_SHARDING):
     """Pre-norm residual layer.  Returns (y, new_mixer_state)."""
-    if policy.enabled and (decode or state is not None):
-        raise NotImplementedError(MESH_DECODE)
     h = rms_norm(p.norm1, x, cfg.norm_eps, cfg.rms_offset)
     new_state = None
     if spec.kind in ("global", "local"):
         window = spec.window if spec.kind == "local" else None
         if decode:
             a, new_state = attn_lib.decode_attention(p.mixer, cfg, h, state,
-                                                     window)
+                                                     window, policy=policy)
         else:
             a = attn_lib.attention(p.mixer, cfg, h, positions, window,
                                    policy=policy)
@@ -172,37 +182,54 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     """Random weights drawn from ``generator`` on its device, in the
     reference's distributions (its draws differ: weights cross between the
     packages through ``convert.params_from_numpy``).  Under a policy, this
-    rank's shards of them (``param_specs``): every rank draws the whole
-    model from the same seed and keeps its slices."""
-    if policy.enabled:
-        full = init_params(cfg, generator)
-        return parallel.shard_tree(full, param_specs(cfg, policy),
-                                   policy.ctx.coord, policy.ctx.size)
+    rank's shards of them (``param_specs``): every rank draws the same
+    values from the same seed, in the same order, one layer (or one
+    embedding table) at a time, and keeps copies of its slices, so no rank
+    holds the whole model."""
     g, dev = generator, generator.device
+    keep = lambda tree, specs: tree  # noqa: E731
+    sp = None
+    if policy.enabled:
+        sp = param_specs(cfg, policy)
+        coord, size = policy.ctx.coord, policy.ctx.size
+
+        def keep(tree, specs):
+            return parallel.shard_tree(tree, specs, coord, size)
+
+    def unstacked(specs):       # a stacked tree's specs, block axis dropped
+        return None if sp is None else spec_map(lambda s: P(*s[1:]), specs)
+
+    pick = (lambda f: None) if sp is None else (lambda f: f(sp))  # noqa: E731
     has_cross = cfg.encoder_layers > 0
     blocks = tuple(
-        tree_stack([init_layer(cfg, spec, g, cross=has_cross)
-                    for _ in range(cfg.num_blocks)])
-        for spec in cfg.pattern)
+        stack_blocks(lambda _, s=s, spec=spec: keep(
+            init_layer(cfg, spec, g, cross=has_cross),
+            unstacked(pick(lambda t: t.blocks[s]))), cfg.num_blocks)
+        for s, spec in enumerate(cfg.pattern))
     # N(0, 1/sqrt(D)) so the sqrt(D) embedding multiplier yields unit-scale
     # activations and tied logits stay O(1) at init
     vp = padded_vocab(cfg.vocab_size)
-    embed = init_dense((vp, cfg.d_model), cfg.d_model ** -0.5, cfg.dtype,
-                       generator=g)
+    embed = keep(init_dense((vp, cfg.d_model), cfg.d_model ** -0.5,
+                            cfg.dtype, generator=g), pick(lambda t: t.embed))
     encoder = None
     if cfg.encoder_layers:
-        encoder = (tree_stack([init_layer(cfg, LayerSpec("global"), g)
-                               for _ in range(cfg.encoder_layers)]),
+        enc_specs = pick(lambda t: t.encoder[0])
+        encoder = (stack_blocks(
+            lambda _: keep(init_layer(cfg, LayerSpec("global"), g),
+                           unstacked(enc_specs)), cfg.encoder_layers),
                    torch.ones(cfg.d_model, dtype=torch.float32, device=dev))
     enc_proj = (init_dense((cfg.d_model, cfg.d_model), None, cfg.dtype,
                            generator=g) if cfg.vision_tokens else None)
-    tail = (tuple(init_layer(cfg, sp, g, cross=has_cross) for sp in cfg.tail)
-            if cfg.tail else None)
+    tail = (tuple(keep(init_layer(cfg, ls, g, cross=has_cross),
+                       pick(lambda t, i=i: t.tail[i]))
+                  for i, ls in enumerate(cfg.tail)) if cfg.tail else None)
+    unembed = None
+    if not cfg.tie_embeddings:
+        unembed = keep(init_dense((cfg.d_model, vp), None, cfg.dtype,
+                                  generator=g), pick(lambda t: t.unembed))
     return ModelParams(
         embed=embed, blocks=blocks, final_norm=_norm_init(cfg, dev),
-        unembed=(None if cfg.tie_embeddings else init_dense(
-            (cfg.d_model, vp), None, cfg.dtype, generator=g)),
-        encoder=encoder, enc_proj=enc_proj, tail=tail)
+        unembed=unembed, encoder=encoder, enc_proj=enc_proj, tail=tail)
 
 
 def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> ModelParams:
@@ -297,8 +324,14 @@ def _scan_blocks(params: ModelParams, cfg: ModelConfig, x: torch.Tensor,
 def embed_tokens(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor,
                  *, policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """``embed[tokens] * sqrt(D)``; under a policy the table's rows are
-    sharded over tp (``parallel.vocab_embed``)."""
-    if policy.enabled:
+    sharded over tp (``parallel.vocab_embed``), and in decode its FSDP
+    columns stay sharded (``parallel.dp_dense``)."""
+    if policy.enabled and not policy.weight_gather:
+        ctx = policy.ctx
+        x = parallel.dp_dense(lambda t, w: parallel.vocab_embed(w, t, ctx),
+                              tokens, params.embed, ctx,
+                              out_dim=-1).to(cfg.dtype)
+    elif policy.enabled:
         w = policy.gather_fsdp(params.embed, P(policy.tp, None),
                                policy.p_embed())
         x = parallel.vocab_embed(w, tokens, policy.ctx).to(cfg.dtype)
@@ -319,23 +352,51 @@ def lm_logits(params: ModelParams, cfg: ModelConfig, x: torch.Tensor, *,
         if tv is None and policy.ctx.tp_size > 1:
             raise ValueError(f"the padded vocabulary {vp} does not divide "
                              f"over tp = {policy.ctx.tp_size}")
-        if params.unembed is None:
-            w = policy.gather_fsdp(params.embed, P(tv, None),
-                                   policy.p_embed()).T
+        lo = policy.ctx.tp_rank * (vp // policy.ctx.tp_size)
+        if not policy.weight_gather:
+            logits = _decode_logits(params, x, policy)
         else:
-            w = policy.gather_fsdp(params.unembed, P(None, tv),
-                                   policy.p_embed())
-        x = parallel.copy_in(x, policy.ctx)
-        lo = policy.ctx.tp_rank * w.shape[1]
+            if params.unembed is None:
+                w = policy.gather_fsdp(params.embed, P(tv, None),
+                                       policy.p_embed()).T
+            else:
+                w = policy.gather_fsdp(params.unembed, P(None, tv),
+                                       policy.p_embed())
+            x = parallel.copy_in(x, policy.ctx)
+            logits = _logits(x, w)
     else:
-        w = params.embed.T if params.unembed is None else params.unembed
-    logits = softcap(torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)),
-                     cfg.logit_softcap)
+        logits = _logits(x, params.embed.T if params.unembed is None
+                         else params.unembed)
+    logits = softcap(logits, cfg.logit_softcap)
     if vp != cfg.vocab_size:  # mask the padded slots exactly
         valid = torch.arange(lo, lo + logits.shape[-1],
                              device=x.device) < cfg.vocab_size
         logits = torch.where(valid, logits, scalar(logits, -1e9))
     return logits
+
+
+def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+
+
+def _decode_logits(params: ModelParams, x: torch.Tensor,
+                   policy: ShardingPolicy) -> torch.Tensor:
+    """This rank's vocabulary block of the logits of its decode rows, the
+    FSDP weight kept sharded: the tied table (V over tp, D over dp) by
+    ``dp_dense``; the untied head (D over tp, V over dp) on this rank's D
+    block of the gathered rows, its V block zero-padded and
+    reduce-scattered over dp, then over tp along the vocabulary."""
+    ctx = policy.ctx
+    if params.unembed is None:
+        return parallel.dp_dense(lambda a, w: _logits(a, w.T), x,
+                                 params.embed, ctx, contract_dim=-1)
+    y = parallel.dp_dense(
+        lambda a, w: _logits(parallel.tp_slice(a, -1, ctx), w), x,
+        params.unembed, ctx, out_dim=-1)
+    if ctx.tp_size == 1:
+        return y
+    return parallel._reduce_scatter(y.float(), y.dim() - 1, policy.tp,
+                                    ctx).to(y.dtype)
 
 
 def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor,

@@ -21,11 +21,17 @@ global mean (its batch rows over the dp axes) reduced over dp, the
 gradients come out as this rank's shards of the global gradient (the dp
 reduce-scatters in the backward, an all-reduce over dp of the leaves
 replicated there), and the optimizer keeps the param specs (ZeRO-3).
-``decode_state_specs`` is the reference's table of decode-state specs; no
-entry point runs decode over a mesh yet (ROADMAP item 13f).
+The serving steps run under a policy too: the prefill on this rank's
+batch rows and shards, its logits this rank's vocabulary block; the
+decode step on this rank's shard of the ``DecodeState``, laid out by
+``serving_state_specs`` (``decode_state_specs``, the reference's table,
+or its context-parallel form when the batch does not shard: the caches'
+slots over the dp axes), with the FSDP weights left sharded (the
+reference's ``weight_gather=False``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple
 
 import torch
@@ -37,8 +43,8 @@ from . import parallel
 from . import recurrent as rec_lib
 from . import transformer as tf
 from .common import (NO_SHARDING, LayerSpec, ModelConfig, P, ShardingPolicy,
-                     entry_axes, remat, spec_leaves, tree_leaves, tree_map,
-                     tree_stack)
+                     entry_axes, remat, spec_leaves, spec_map, stack_blocks,
+                     tree_leaves, tree_map)
 
 LOSS_SEQ_CHUNK = 1024  # CE evaluated in seq chunks to bound logits memory
 
@@ -214,28 +220,48 @@ def _layer_state(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int,
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       prefill_len: int = 0,
                       generator: torch.Generator | None = None,
-                      dtype=torch.bfloat16, device=None) -> DecodeState:
+                      dtype=torch.bfloat16, device=None, *,
+                      policy: ShardingPolicy = NO_SHARDING) -> DecodeState:
     """Stand-in (or empty) decode state for every layer.
 
     With ``prefill_len`` the caches hold a prefix of that many tokens in
     the ring layout; with a generator their content (and the recurrent
     states and whisper's ``cross_kv``) is random, drawn on the generator's
-    device, else zeros on ``device`` (``cuda:0`` by default)."""
+    device, else zeros on ``device`` (``cuda:0`` by default).  Under a
+    policy, this rank's shards of it (``serving_state_specs``): every rank
+    draws the same values in the same order, one layer's state (or one
+    ``cross_kv`` leaf) at a time, and keeps copies of its slices."""
     dev = generator.device if generator is not None else resolve_device(device)
     one = lambda spec: _layer_state(  # noqa: E731
         cfg, spec, batch, max_len, prefill_len, generator, dtype, dev)
-    states = tuple(tree_stack([one(spec) for _ in range(cfg.num_blocks)])
-                   for spec in cfg.pattern)
+    keep = lambda tree, specs: tree  # noqa: E731
+    sp = None
+    if policy.enabled:
+        sp = serving_state_specs(cfg, policy)
+        coord, size = policy.ctx.coord, policy.ctx.size
+
+        def keep(tree, specs):
+            return parallel.shard_tree(tree, specs, coord, size)
+
+    pick = (lambda f: None) if sp is None else (lambda f: f(sp))  # noqa: E731
+    states = tuple(
+        stack_blocks(lambda _, s=s, spec=spec: keep(one(spec), pick(
+            lambda t: spec_map(lambda e: P(*e[1:]), t.layer_states[s]))),
+            cfg.num_blocks)
+        for s, spec in enumerate(cfg.pattern))
     cross_kv = None
     if cfg.encoder_layers:
         shape = (cfg.num_blocks, batch, cfg.encoder_frames, cfg.num_kv_heads,
                  cfg.hd)
         cross_kv = tuple(
-            torch.randn(shape, generator=generator, dtype=dtype,
-                        device=dev) * 0.02 if generator is not None
-            else torch.zeros(shape, dtype=dtype, device=dev)
-            for _ in range(2 * len(cfg.pattern)))
-    tail_states = (tuple(one(sp) for sp in cfg.tail) if cfg.tail else None)
+            keep(torch.randn(shape, generator=generator, dtype=dtype,
+                             device=dev) * 0.02 if generator is not None
+                 else torch.zeros(shape, dtype=dtype, device=dev),
+                 pick(lambda t, i=i: t.cross_kv[i]))
+            for i in range(2 * len(cfg.pattern)))
+    tail_states = (tuple(keep(one(ls), pick(lambda t, i=i: t.tail_states[i]))
+                         for i, ls in enumerate(cfg.tail))
+                   if cfg.tail else None)
     return DecodeState(
         layer_states=states,
         position=torch.tensor(prefill_len, dtype=torch.int32, device=dev),
@@ -297,6 +323,40 @@ def decode_state_specs(cfg: ModelConfig, policy: ShardingPolicy
                      if cfg.tail else None))
 
 
+def context_parallel_specs(slot_axes: tuple, tkv,
+                           d_specs: DecodeState) -> DecodeState:
+    """``d_specs`` with every KV cache's slots sharded over ``slot_axes``
+    and its KV heads over ``tkv`` (the reference's
+    ``launch.specs._context_parallel_specs``: ``long_500k``'s B = 1
+    cannot shard the batch)."""
+
+    def fix(node):
+        if isinstance(node, attn_lib.KVCache):
+            lead = (None,) if len(node.pos) == 2 else ()   # stacked
+            return attn_lib.KVCache(
+                k=P(*lead, None, slot_axes, tkv, None),
+                v=P(*lead, None, slot_axes, tkv, None),
+                pos=P(*lead, slot_axes), length=P(*lead))
+        if node is None or isinstance(node, P):
+            return node
+        out = [fix(n) for n in node]
+        return type(node)(*out) if hasattr(node, "_fields") else tuple(out)
+
+    return fix(d_specs)
+
+
+def serving_state_specs(cfg: ModelConfig, policy: ShardingPolicy
+                        ) -> DecodeState:
+    """The layout of the ``DecodeState`` the decode step runs on under
+    ``policy``: ``decode_state_specs`` where the batch shards over dp,
+    else its context-parallel form over every mesh axis but tp."""
+    d_specs = decode_state_specs(cfg, policy)
+    if policy.dp:
+        return d_specs
+    return context_parallel_specs(attn_lib.decode_layout(cfg, policy)[0],
+                                  policy.shard_if(cfg.num_kv_heads), d_specs)
+
+
 def _store(state, new) -> None:
     """Write a layer's new recurrent state into its slice of the stacked
     state.  A KV cache was written in place by ``decode_attention``."""
@@ -306,14 +366,22 @@ def _store(state, new) -> None:
         dst.copy_(src)
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, policy: ShardingPolicy = NO_SHARDING):
     """One-token decode: (params, DecodeState, token (B,1)) -> (logits,
-    state), recording no autograd graph."""
+    state), recording no autograd graph.  Under a policy
+    (``launch.specs.make_policy(mesh, B, "decode")``): this rank's shards
+    of the params and of the state (``serving_state_specs``) and its rows
+    of the tokens; the logits are its rows and vocabulary block.  The FSDP
+    weights stay sharded whatever the policy's ``weight_gather`` (the
+    reference's decode policy turns it off; a gathered weight gives the
+    same values)."""
+    if policy.enabled and policy.weight_gather:
+        policy = dataclasses.replace(policy, weight_gather=False)
 
     @torch.no_grad()
     def decode_step(params: tf.ModelParams, state: DecodeState,
                     token: torch.Tensor):
-        x = tf.embed_tokens(params, cfg, token)
+        x = tf.embed_tokens(params, cfg, token, policy=policy)
         for b in range(cfg.num_blocks):
             for s, spec in enumerate(cfg.pattern):
                 st = tf.block(state.layer_states[s], b)
@@ -321,30 +389,38 @@ def make_decode_step(cfg: ModelConfig):
                        (state.cross_kv[2 * s][b], state.cross_kv[2 * s + 1][b]))
                 x, ns = tf.apply_layer(tf.block(params.blocks[s], b), cfg,
                                        spec, x, None, state=st, decode=True,
-                                       enc_kv=ckv)
+                                       enc_kv=ckv, policy=policy)
                 _store(st, ns)
         if params.tail is not None:
             for lp, spec, st in zip(params.tail, cfg.tail, state.tail_states):
                 x, ns = tf.apply_layer(lp, cfg, spec, x, None, state=st,
-                                       decode=True)
+                                       decode=True, policy=policy)
                 _store(st, ns)
-        logits = tf.lm_logits(params, cfg, x)
+        logits = tf.lm_logits(params, cfg, x, policy=policy)
         return logits, state._replace(position=state.position + 1)
 
     return decode_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig,
+                      policy: ShardingPolicy = NO_SHARDING):
     """Full-sequence forward; returns last-position logits (no autograd
-    graph).  ``batch``: dict(tokens[, frames, patches])."""
+    graph).  ``batch``: dict(tokens[, frames, patches]).  Under a policy
+    (``launch.specs.make_policy(mesh, B, "prefill")``): this rank's shards
+    of the params and its rows of the batch; the logits are its rows and
+    vocabulary block.  The FSDP weights are gathered before their use
+    whatever the policy's ``weight_gather``."""
+    if policy.enabled and not policy.weight_gather:
+        policy = dataclasses.replace(policy, weight_gather=True)
 
     @torch.no_grad()
     def prefill_step(params: tf.ModelParams, batch) -> torch.Tensor:
         enc = None
         if cfg.encoder_layers:
-            enc = tf.encode(params, cfg, batch["frames"])
+            enc = tf.encode(params, cfg, batch["frames"], policy=policy)
         h = tf.forward(params, cfg, batch["tokens"],
-                       extra_embeds=batch.get("patches"), encoder_out=enc)
-        return tf.lm_logits(params, cfg, h[:, -1:])
+                       extra_embeds=batch.get("patches"), encoder_out=enc,
+                       policy=policy)
+        return tf.lm_logits(params, cfg, h[:, -1:], policy=policy)
 
     return prefill_step

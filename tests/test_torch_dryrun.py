@@ -20,7 +20,12 @@ them.
   reckoning: T_loc = 256 / 32 rows x 4096 / 8 tokens, C = ceil(T_loc K /
   E) x 1.25, a (E, C, D) bf16 buffer six times a layer (dispatch and
   return in the forward, the block's recompute and the backward).
-* (d) Prefill and decode cells are skips naming ROADMAP item 13f.
+* (d) The three serving cells of gemma2-27b (prefill_32k, decode_32k,
+  long_500k: the batch over "data", the KV heads over "model", and the
+  cache's slots over "data" when the batch cannot shard) are ``ok`` with
+  costs; a decode cell's cache bytes a card equal a reckoning from the
+  decode-state specs (each leaf's elements over the product of its spec's
+  axis sizes), exactly, and a prefill holds no cache.
 * (e) ``render_table``, ``perf_report`` and ``hlo_breakdown`` render the
   records.
 """
@@ -48,7 +53,7 @@ out_dir, train = sys.argv[1], sys.argv[2].split(",")
 recs = {"nop/" + a: dryrun.run_cell(a, "train_4k", 256, probe=False)
         for a in train}
 for shape in ("prefill_32k", "decode_32k", "long_500k"):
-    recs["skip/" + shape] = dryrun.run_cell("gemma2-27b", shape, 256)
+    recs["serve/" + shape] = dryrun.run_cell("gemma2-27b", shape, 256)
 recs["cell/moe"] = dryrun.run_cell("qwen3-moe-30b-a3b", "train_4k", 256)
 for a in %r:
     cfg = dataclasses.replace(smoke(a), num_layers=3)
@@ -67,7 +72,8 @@ recs["breakdown"] = [list(r) for r in rows]
 with open(out_dir + "/records.json", "w") as f:
     json.dump(recs, f)
 with open(out_dir + "/cells.json", "w") as f:
-    json.dump([recs["cell/moe"], recs["skip/prefill_32k"]], f)
+    json.dump([recs["cell/moe"], recs["serve/decode_32k"],
+               dict(arch="mamba2-130m", shape="long_500k", status="skip")], f)
 print("OK")
 """ % (SMALL,)
 
@@ -181,9 +187,44 @@ def test_moe_all_to_all_bytes_equal_the_capacity_reckoning(records):
 
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
 def test_serving_cells_are_skips_naming_13f(records, shape):
-    """(d)"""
-    rec = records[0][f"skip/{shape}"]
-    assert rec["status"] == "skip" and "13f" in rec["reason"]
+    """(d): the serving cell is ``ok`` (no longer a skip), with its costs,
+    and its cache bytes a card equal the reckoning from the decode-state
+    specs."""
+    from repro_torch.launch import specs
+    from repro_torch.models import convert, zoo
+
+    rec = records[0][f"serve/{shape}"]
+    sh = tarchs.SHAPES[shape]
+    assert rec["status"] == "ok" and rec["kind"] == sh["kind"]
+    assert rec["mesh"] == "32x8" and isinstance(rec["fits_hbm"], bool)
+    costs = rec["costs"]
+    assert costs["flops"] > 0 and costs["op_bytes"] > 0
+    assert costs["coll_bytes"] and all(
+        b > 0 for by_axis in costs["coll_bytes"].values()
+        for b in by_axis.values())
+    mem = rec["memory"]
+    assert mem["peak_device_bytes"] == (mem["param_bytes"]
+                                        + mem["cache_bytes"]
+                                        + mem["batch_bytes"]
+                                        + mem["temp_bytes"])
+    if sh["kind"] == "prefill":
+        assert mem["cache_bytes"] == 0
+        return
+    cfg = tarchs.ARCHS["gemma2-27b"]
+    B, S = sh["global_batch"], sh["seq_len"]
+    mesh = StandIn((32, 8))
+    policy = specs.make_policy(mesh, B, "decode")
+    d_specs = zoo.decode_state_specs(cfg, policy)
+    if not policy.dp:
+        d_specs = specs._context_parallel_specs(cfg, mesh, d_specs)
+    spec = convert.flatten(d_specs)
+    size = {"data": 32, "model": 8}
+    want = 0
+    for k, t in convert.flatten(specs.meta_decode_state(cfg, B, S)).items():
+        ranks = math.prod(size[a] for e in spec[k] if e is not None
+                          for a in ((e,) if isinstance(e, str) else e))
+        want += t.numel() // ranks * t.element_size()
+    assert mem["cache_bytes"] == want
 
 
 def test_render_table_and_perf_report(records):
@@ -197,15 +238,17 @@ def test_render_table_and_perf_report(records):
     table = roofline.render_table(path).splitlines()
     assert table[0].startswith("| arch | shape | compute s | memory s | "
                                "collective s | bound | MODEL/HLO |")
-    assert len(table) == 3 and table[2].startswith(
+    assert len(table) == 4 and table[2].startswith(
         "| qwen3-moe-30b-a3b | train_4k |")
+    assert table[3].startswith("| gemma2-27b | decode_32k |")
     r = roofline.analyze_cell(json.load(open(path))[0])
     assert r["bound"] in ("compute", "memory", "collective")
     assert r["step_time"] == max(r["t_compute"], r["t_memory"],
                                  r["t_collective"]) > 0
     rep = perf_report.report(path, path).splitlines()
-    assert len(rep) == 3 and "| qwen3-moe-30b-a3b | train_4k |" in rep[2]
-    assert f"{r['bound']}→{r['bound']}" in rep[2]
+    assert len(rep) == 4 and "| qwen3-moe-30b-a3b | train_4k |" in rep[3]
+    assert "| gemma2-27b | decode_32k |" in rep[2]
+    assert f"{r['bound']}→{r['bound']}" in rep[3]
 
 
 def test_hlo_breakdown_lists_the_expert_all_to_alls(records):

@@ -4,8 +4,9 @@ the engine and the trainer running through the kernels, V-sharded serving
 through K3 (shards on one card, and across cards where there are two), and
 training over a one-rank NCCL group (spawned, never in the test's process),
 and the LM zoo's smoke architectures (serving and training, on one device
-and over a one-rank NCCL (1, 1) mesh), its serving and training launchers
-and the prefetching loader.  Skipped without a card.  This file imports no JAX, so it runs on a machine that has only
+and over a one-rank NCCL (1, 1) mesh; serving over two NCCL ranks where
+there are two cards), its serving and training launchers and the
+prefetching loader.  Skipped without a card.  This file imports no JAX, so it runs on a machine that has only
 PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -991,3 +992,103 @@ def test_lm_mesh_step_on_one_nccl_rank(dev, tmp_path):
     for r in rows:
         assert r["finite"] and r["steps_equal"] and r["state_within_bound"]
         assert r["loss_rel_err"] <= 1e-5 and r["grad_norm_rel_err"] <= 1e-4
+
+
+def _lm_serve_rank(rank, name, shape, out_path):
+    """One NCCL rank of a ("data", "model") mesh of ``shape``: ``name``'s
+    smoke config in float32 (TF32 off), weights, a stand-in state of 20
+    tokens in 32 slots (the window-8 rings wrap) and 4 decode tokens
+    drawn on the CPU from a seed; rank 0 also runs the one-device decode
+    and prefill on the card; every rank runs this rank's shards through
+    the mesh steps and the logits are gathered.  Rank 0 saves both."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.archs import smoke
+    from repro_torch.launch.specs import make_policy
+    from repro_torch.models import convert, parallel, zoo
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import decode_layout
+    from repro_torch.models.common import P, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = init_device_mesh("cuda", shape, mesh_dim_names=("data", "model"))
+    cfg = dataclasses.replace(smoke(name), dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    params = tree_map(lambda a: a.to(dev), tf.init_params(cfg, g))
+    state = tree_map(lambda a: a.to(dev), zoo.init_decode_state(
+        cfg, 2, 32, prefill_len=20, generator=g, dtype=torch.float32))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 4), generator=g).to(dev)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 12), generator=g).to(dev)
+    out = {}
+    if rank == 0:
+        st = tree_map(lambda a: a.clone(), state)
+        step = zoo.make_decode_step(cfg)
+        out["one"] = [step(params, st, tokens[:, i:i + 1])[0].cpu()
+                      for i in range(4)]
+        out["one_prefill"] = zoo.make_prefill_step(cfg)(
+            params, {"tokens": prompt}).cpu()
+    pol = make_policy(mesh, 2, "decode")
+    rank_ = torch.distributed.get_rank()
+    local = convert.shard_params(params, tf.param_specs(cfg, pol), mesh,
+                                 rank_)
+    st = convert.shard_decode_state(cfg, state, zoo.serving_state_specs(
+        cfg, pol), mesh, rank_)
+    rows = parallel.dp_rows({"t": tokens, "p": prompt}, pol.ctx)
+    step = zoo.make_decode_step(cfg, policy=pol)
+    spec = P(pol.batch(), None, pol.tp)
+    out["mesh"] = []
+    for i in range(4):
+        logits, st = step(local, st, rows["t"][:, i:i + 1])
+        out["mesh"].append(parallel.gather_full(logits, spec, pol.ctx).cpu())
+    pp = make_policy(mesh, 2, "prefill")
+    pre = zoo.make_prefill_step(cfg, policy=pp)(
+        convert.shard_params(params, tf.param_specs(cfg, pp), mesh, rank_),
+        {"tokens": rows["p"]})
+    out["mesh_prefill"] = parallel.gather_full(
+        pre, P(pp.batch(), None, pp.tp), pp.ctx).cpu()
+    out["slot_axes"] = decode_layout(cfg, pol)[0]
+    if rank == 0:
+        torch.save(out, out_path)
+
+
+def _serve_on_mesh(tmp_path, name, shape):
+    from repro_torch.distributed import launch
+
+    out = tmp_path / "serve.pt"
+    launch.spawn(_lm_serve_rank, shape[0] * shape[1],
+                 args=(name, shape, str(out)), device_type="cuda",
+                 store_dir=str(tmp_path))
+    return torch.load(out)
+
+
+def test_lm_serve_on_one_nccl_rank_is_bit_equal(dev, tmp_path):
+    """qwen3-4b's smoke config decoded and prefilled over a one-rank (1, 1)
+    mesh: every step's logits and the prefill's equal the one-device
+    steps' bit for bit (an axis of size one runs no collective)."""
+    res = _serve_on_mesh(tmp_path, "qwen3-4b", (1, 1))
+    for a, b in zip(res["one"], res["mesh"]):
+        assert torch.equal(a, b)
+    assert torch.equal(res["one_prefill"], res["mesh_prefill"])
+
+
+def test_lm_serve_slot_sharded_on_two_cards(dev, tmp_path):
+    """recurrentgemma-2b's smoke config (one KV head) over two NCCL ranks,
+    a (1, 2) mesh: its caches' slots go over "model" (layout (b), the
+    softmax combined across the cards); the logits within 1e-5 of the
+    one-card steps' scale, float32."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the slot-sharded cache spans "
+                    "both")
+    res = _serve_on_mesh(tmp_path, "recurrentgemma-2b", (1, 2))
+    assert res["slot_axes"] == ("model",)
+    V = 128
+    for a, b in zip(res["one"], res["mesh"]):
+        err = float((a[..., :V] - b[..., :V]).abs().max()
+                    / a[..., :V].abs().max())
+        assert err <= 1e-5
+    a, b = res["one_prefill"][..., :V], res["mesh_prefill"][..., :V]
+    assert float((a - b).abs().max() / a.abs().max()) <= 1e-5

@@ -193,11 +193,37 @@ def test_h100_constants():
 
 @pytest.mark.parametrize("kind", ["prefill_32k", "decode_32k", "long_500k"])
 def test_build_cell_refuses_serving_cells(kind):
-    """Prefill and decode cells name ROADMAP item 13f; no mesh is
-    touched before the refusal."""
-    arch = "gemma2-27b"
-    with pytest.raises(NotImplementedError, match="13f"):
-        tspecs.build_cell(arch, kind, PortMesh((2, 2)))
+    """Prefill and decode cells are built now (no longer refused): the
+    step, and the meta shards of the rank at (0, 0) of a (2, 2) mesh.
+    gemma2-27b: the prefill's params (heads over "model", d_model over
+    "data") and rows of the 32 x 32,768 batch; decode_32k's global cache
+    (batch over "data", KV heads over "model"); long_500k's (B = 1: the
+    slots over "data", context parallelism).  No process group is
+    touched."""
+    cfg = tarchs.ARCHS["gemma2-27b"]
+    cell = tspecs.build_cell("gemma2-27b", kind, PortMesh((2, 2)))
+    sh = tarchs.SHAPES[kind]
+    assert cell.kind == sh["kind"] and callable(cell.fn)
+    assert cell.policy.weight_gather == (sh["kind"] != "decode")
+    params = cell.args[0]
+    wq = params.blocks[0].mixer.wq
+    nb, D, H, hd = cfg.num_blocks, cfg.d_model, cfg.num_heads, cfg.hd
+    fs = 2 if cell.policy.dp else 1
+    assert (tuple(wq.shape), wq.dtype, wq.device.type) == (
+        (nb, D // fs, H // 2, hd), torch.bfloat16, "meta")
+    if sh["kind"] == "prefill":
+        assert tuple(cell.args[1]["tokens"].shape) == (16, 32_768)
+        return
+    _, state, token = cell.args
+    k = state.layer_states[1].k            # the global layers' cache
+    if kind == "decode_32k":
+        assert tuple(k.shape) == (nb, 64, 32_768, 8, hd)
+        assert tuple(token.shape) == (64, 1)
+    else:
+        assert tuple(k.shape) == (nb, 1, 262_144, 8, hd)
+        assert tuple(state.layer_states[1].pos.shape) == (nb, 262_144)
+        assert tuple(token.shape) == (1, 1)
+    assert k.device.type == "meta" and k.dtype == torch.bfloat16
 
 
 def test_build_cell_returns_the_moe_train_cell():
