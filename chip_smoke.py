@@ -66,7 +66,9 @@ D = 299,752 docs, V = 101,636, ~99.5M tokens, Zipf 1.1):
     the rate they were moved at);
 11. the training main path: ``fit(corpus, CONFIG, 10)`` on cuda:0 with
     eval every iteration, then K4 rebuilds phi from the final z; the K1,
-    K2 and K4 counters are read around both;
+    K2 and K4 counters are read around both; then one more iteration
+    between a reset and a read of the card's peak (``train_step_memory``,
+    not counted: the dry run's ``--lda-card-run`` reckons its peak);
 12. K1 against its plain version again, on the trained state (the same
     tiles as in 8);
 13. where an iteration's time goes: each step of ``lda_iteration`` timed
@@ -1863,14 +1865,25 @@ def mesh_arch_vs_card(name: str, mesh, dev) -> dict:
 def mesh_step_nccl_ms(prof, name: str = "") -> float | None:
     """The device time of a profiled window's NCCL kernels (those whose
     name holds ``name`` when given: "SendRecv" is the all-to-all), or None
-    when the trace holds no device time."""
+    when the trace holds no device time.  Only the kernels: c10d's GPU
+    annotation around each one ("nccl:all_reduce") spans the same time and
+    would count it twice."""
     from torch.autograd import DeviceType
 
     ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-          and "nccl" in e.name.lower() and name in e.name]
+          and "nccl" in e.name.lower() and "kernel" in e.name.lower()
+          and name in e.name]
     if not any(e.device_type == DeviceType.CUDA for e in prof.events()):
         return None
     return sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+NCCL_KINDS = ("AllGather", "ReduceScatter", "AllReduce", "SendRecv")
+
+
+def nccl_kinds_ms(prof) -> dict:
+    """``mesh_step_nccl_ms`` of each kind of NCCL kernel (NCCL_KINDS)."""
+    return {k: mesh_step_nccl_ms(prof, k) for k in NCCL_KINDS}
 
 
 def moe_config(layers: int):
@@ -1984,6 +1997,7 @@ def qwen_mesh_steps(mesh, batch: int, steps: int, dev,
             busy["nccl_device_ms"] = mesh_step_nccl_ms(prof)
             busy["nccl_all_to_all_device_ms"] = mesh_step_nccl_ms(
                 prof, "SendRecv")
+            busy["nccl_by_kind_ms"] = nccl_kinds_ms(prof)
     finally:
         loader.close()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1994,7 +2008,8 @@ def qwen_mesh_steps(mesh, batch: int, steps: int, dev,
         cfg, n_params, tokens, S)
     out = dict(arch=cfg.name, layers=cfg.num_layers, params=n_params,
                mesh=list(mesh.mesh.shape), ranks=world, batch=batch, seq=S,
-               dp=list(policy.dp), tp=policy.ctx.tp_size, init_s=init_s,
+               dp=list(policy.dp), tp=policy.ctx.tp_size,
+               sp=policy.with_sequence(S).seq, init_s=init_s,
                local_state_and_grad_bytes=local_bytes,
                reckoned_bytes_per_card=(STATE_BYTES_PER_PARAM * n_params
                                         / world),
@@ -2481,11 +2496,15 @@ def serve_run(cfg, params, mesh, B: int, slots: int, steps: int,
     return out
 
 
-def prefill_run(cfg, params, mesh, B: int, S: int, dev) -> dict:
+def prefill_run(cfg, params, mesh, B: int, S: int, dev,
+                sp: bool = True) -> dict:
     """A prefill of ``B`` x ``S`` seeded tokens over ``mesh`` on this rank
     (its rows), one warm-up call and one timed (CUDA events), then one
     under ``torch.profiler``; its FLOP bound over the ranks' 989 TFLOP/s
-    (phase 20's dense count)."""
+    (phase 20's dense count).  ``sp=False``: the policy's sequence
+    parallelism off (the residual replicated over tp)."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
@@ -2494,7 +2513,7 @@ def prefill_run(cfg, params, mesh, B: int, S: int, dev) -> dict:
     from repro_torch.models import parallel, zoo
     from repro_torch.models.common import padded_vocab, tree_leaves
 
-    policy = make_policy(mesh, B, "prefill")
+    policy = dataclasses.replace(make_policy(mesh, B, "prefill"), sp=sp)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     toks = parallel.dp_rows({"tokens": torch.randint(
@@ -2520,12 +2539,14 @@ def prefill_run(cfg, params, mesh, B: int, S: int, dev) -> dict:
     busy = device_busy(prof, prof_ms, steps=1)
     busy["top_kernels"] = busy.get("top_kernels", [])[:5]
     busy["nccl_device_ms"] = mesh_step_nccl_ms(prof)
+    busy["nccl_by_kind_ms"] = nccl_kinds_ms(prof)
     n_params = sum(t.numel() for t in tree_leaves(meta_params(cfg)))
     vp = padded_vocab(cfg.vocab_size)
     flops = B * (2 * (n_params - vp * cfg.d_model) * S
                  + 2 * cfg.d_model * vp
                  + 2 * S * S * cfg.num_heads * cfg.hd * cfg.num_layers)
-    out = dict(batch=B, S=S, ms=ms, tokens_per_s=B * S / ms * 1e3,
+    out = dict(batch=B, S=S, sp=policy.with_sequence(S).seq, ms=ms,
+               tokens_per_s=B * S / ms * 1e3,
                flops=flops, bound_ms=flops / (dist.get_world_size()
                                               * BF16_FLOPS) * 1e3,
                nccl_bytes=nccl, profile=busy,
@@ -2595,6 +2616,10 @@ def serve_job(rank: int, job: str, tmp: str) -> None:
         row["decode"] = serve_run(cfg, params, mesh, Bd, sl, st, dev)
         row["prefill"] = prefill_run(cfg, params, mesh, *SERVE_FOUR_PREFILL,
                                      dev)
+        # the same prefill with the residual replicated over tp: the
+        # same-call baseline of sequence parallelism
+        row["prefill_replicated"] = prefill_run(
+            cfg, params, mesh, *SERVE_FOUR_PREFILL, dev, sp=False)
     else:
         row["decode"] = serve_run(cfg, params, mesh, *SERVE_FOUR_GEMMA, dev)
     Path(tmp, f"{job}_rank{rank}.json").write_text(json.dumps(row))
@@ -2642,7 +2667,8 @@ def lm_serve_four(card: str, jobs=("qwen", "gemma"), rank_fn=None,
             if not g["clean"] <= SERVE_GATE_REL < g["planted"]:
                 failed.append(f"{where}, rank {r['rank']}: gate {g}")
             failed += [f"{where}: non-finite {kind}"
-                       for kind in ("decode", "prefill")
+                       for kind in ("decode", "prefill",
+                                    "prefill_replicated")
                        if kind in r and not r[kind]["finite"]]
             if d["act_share"] > SERVE_ACT_SHARE:
                 failed.append(f"{where}: a decode step's collectives "
@@ -2802,6 +2828,9 @@ def train_phases(card: str, scale: float, iters: int,
         raise AssertionError("phi.sum() != number of tokens")
     if not bool(((st.z >= 0) & (st.z < K)).all()):
         raise AssertionError("a topic assignment is outside [0, K)")
+    del rebuilt
+    emit("train_step_memory", card=card,
+         **step_memory(cfg, shard, st, seg, rows, dev))
 
     # -- 12-13. K1 against plain on the trained state; the step breakdown ----
     err, _ = trained_state_phases(card, cfg, shard, st, seg, kw, "trained",
@@ -2837,6 +2866,34 @@ def train_phases(card: str, scale: float, iters: int,
             "src/repro/kernels/phi_update/kernel.py:112", "k4", k4_err,
             launches["phi_update_tiles"]),
     ]
+
+
+def step_memory(cfg, shard, st, seg, rows, dev) -> dict:
+    """One more iteration from the trained state ``st`` (its uniforms drawn
+    inside), between a reset of the card's peak and a read of it: the
+    bytes held before it, of them the step's own (the shard's tiles, K2's
+    table ``seg``, K4's rows ``rows``, the state), and the peak;
+    ``dryrun --lda-card-run`` reckons
+    the same step on fake tensors (without K4's rows, which a step does
+    not read).  Not counted among the main path's launches."""
+    import torch
+
+    from repro_torch.core import trainer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    nxt, _ = trainer.lda_iteration(cfg, shard, st)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del nxt
+    known = table_bytes(seg, rows, st.z, st.phi_vk, st.phi_sum, *(
+        getattr(shard, f) for f in shard._TENSORS))
+    return dict(held_bytes=held, peak_bytes=peak,
+                transient_bytes=peak - held, held_step_bytes=known,
+                held_other_bytes=held - known,
+                k4_rows_bytes=table_bytes(rows),
+                k2_table_bytes=table_bytes(seg))
 
 
 def sharded_phase(card, snap, snap2, docs, majors, docs2, majors2,

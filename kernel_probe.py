@@ -495,32 +495,56 @@ def pubmed_memory(scales) -> int:
 def _dropped_reduce_rank(rank: int, layout: str, batch: int,
                          out_dir: str, moe_layers: int = 0) -> None:
     """``chip_smoke._lm_mesh_rank`` with a planted fault: in the forward of
-    every step, the tp all-reduce of the first MLP's row-parallel output
-    is skipped, so each rank carries its own partial sum on (the backward's
+    every step, the tp reduction of the first MLP's row-parallel output
+    is skipped (its reduce-scatter along S under sequence parallelism:
+    each rank keeps its block of its own partial sum; its all-reduce
+    without), so each rank carries its own partial sum on (the backward's
     recomputation of that layer reduces as it should)."""
     from repro_torch.models import parallel, zoo
 
-    reduce_out, loss_fn, dropped = parallel.reduce_out, zoo.loss_fn, [False]
+    seq_leave, loss_fn, dropped = parallel.seq_leave, zoo.loss_fn, [False]
 
-    def faulty_reduce(x, ctx, axes=None):
-        if not dropped[0] and sys._getframe(1).f_code.co_name == "mlp":
+    def faulty_leave(y, ctx, *, seq, split):
+        if not dropped[0] and split and \
+                sys._getframe(1).f_code.co_name == "mlp":
             dropped[0] = True
-            return x
-        return reduce_out(x, ctx, axes)
+            return (parallel._Scatter.apply(y, parallel.SEQ_DIM, ctx)
+                    if seq and ctx.tp_size > 1 else y)
+        return seq_leave(y, ctx, seq=seq, split=split)
 
     def faulty_loss(*args, **kw):
         dropped[0] = False
         return loss_fn(*args, **kw)
 
-    parallel.reduce_out, zoo.loss_fn = faulty_reduce, faulty_loss
+    parallel.seq_leave, zoo.loss_fn = faulty_leave, faulty_loss
+    cs._lm_mesh_rank(rank, layout, batch, out_dir, moe_layers)
+
+
+def _replicated_residual_rank(rank: int, layout: str, batch: int,
+                              out_dir: str, moe_layers: int = 0) -> None:
+    """``chip_smoke._lm_mesh_rank`` with the policy's sequence parallelism
+    off (the residual replicated over tp between layers): the same-call
+    baseline of the sequence-sharded runs."""
+    import dataclasses
+
+    from repro_torch.launch import specs
+
+    make = specs.make_policy
+
+    def replicated(*args, **kw):
+        return dataclasses.replace(make(*args, **kw), sp=False)
+
+    specs.make_policy = replicated
     cs._lm_mesh_rank(rank, layout, batch, out_dir, moe_layers)
 
 
 def lm_mesh_four_probe() -> int:
     """Phase 23, then phase 25, which on four cards runs ``lm_mesh_four``
-    and its gate on the (1, 4) mesh's B = 1 losses; then (1, 4) at B = 1
-    once more with ``_dropped_reduce_rank``'s planted fault, which the
-    gate must catch.  Exits 0 only when it does."""
+    and its gate on the (1, 4) mesh's B = 1 losses (the residual
+    sequence-sharded over tp); the same configurations with the residual
+    replicated (``_replicated_residual_rank``), gated the same way; then
+    (1, 4) at B = 1 once more with ``_dropped_reduce_rank``'s planted
+    fault, which the gate must catch.  Exits 0 only when it does."""
 
     import torch
 
@@ -532,11 +556,16 @@ def lm_mesh_four_probe() -> int:
     torch.empty(1, device="cuda:0")    # memory stats need the allocator
     losses = cs.qwen_train_phase(card)[:cs.MESH_LM_STEPS]
     rows = cs.lm_mesh_phase(card, losses)
-    keys = ("layout", "mesh", "batch", "ms_per_step", "tokens_per_s", "mfu",
+    keys = ("layout", "mesh", "batch", "sp", "ms_per_step", "tokens_per_s",
+            "mfu",
             "mfu_reference_count", "peak_bytes_per_card",
             "loss_rel_diff_vs_one_card")
     print(json.dumps({"phase": "lm_mesh_four_summary",
                       "rows": [{k: r.get(k) for k in keys} for r in rows]}),
+          flush=True)
+    base = cs.lm_mesh_four(card, losses, rank_fn=_replicated_residual_rank)
+    print(json.dumps({"phase": "lm_mesh_four_replicated_summary",
+                      "rows": [{k: r.get(k) for k in keys} for r in base]}),
           flush=True)
     try:
         cs.lm_mesh_four(card, losses, configs=(("production", 1),),

@@ -127,9 +127,12 @@ def compressed_sync_phi(phi_delta: torch.Tensor, data_group,
     G = dist.get_world_size(data_group)
     n = phi_delta.numel()
     c = -(-n // G)
+    # narrow and fill_block, not Python indexing and copy_: the dry run
+    # traces this on fake cuda tensors (updates' module docstring)
     send = torch.empty(G * c, dtype=torch.int16, device=phi_delta.device)
-    send[:n].copy_(phi_delta.reshape(-1))          # int32 -> int16 wraps
-    send[n:].zero_()
+    updates.fill_block(send.narrow(0, 0, n),            # int32 -> int16 wraps
+                       phi_delta.reshape(-1))
+    send.narrow(0, n, G * c - n).zero_()
     recv = torch.empty_like(send)
     w_a2a = dist.all_to_all_single(recv.view(torch.uint8),
                                    send.view(torch.uint8), group=data_group,
@@ -142,14 +145,14 @@ def compressed_sync_phi(phi_delta: torch.Tensor, data_group,
 
     def finish():
         w_a2a.wait()
-        chunks = recv.view(G, c)
+        chunks = recv.view(G, c).unbind(0)
         part = chunks[0]
         for j in range(1, G):
             part = part + chunks[j]
         out = torch.empty_like(send)
         all_gather_bytes(out.view(torch.uint8), part.view(torch.uint8),
                          data_group)
-        s = out[:n].view(phi_delta.shape).to(torch.int32)
+        s = out.narrow(0, 0, n).view(phi_delta.shape).to(torch.int32)
         if heavy:
             w_heavy.wait()
             s.index_copy_(0, heavy_rows, exact)

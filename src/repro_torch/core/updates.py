@@ -3,7 +3,11 @@
 phi is stored **word-major**, shape (V, K), as in ``repro.core.updates``.
 Every function here is plain PyTorch; the count kernels of the training
 path (phi's per-iteration delta and its full rebuild) live in
-``repro_torch.kernels.phi_update``.
+``repro_torch.kernels.phi_update``.  The functions an iteration runs cut
+and write blocks with ``narrow`` and ``fill_block``, not with Python
+indexing or ``Tensor.copy_``: the dry run (``launch/dryrun.py``) traces
+the iteration on fake ``cuda`` tensors on a CPU-only build of torch,
+whose Python bindings for those take a CUDA device guard and raise.
 """
 from __future__ import annotations
 
@@ -70,6 +74,14 @@ def theta_delta(z_old: torch.Tensor, z_new: torch.Tensor,
 INT16_MAX = 32767
 
 
+def fill_block(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` (a cast as ``.to(dst.dtype)`` casts) through the
+    aten op: the Python bindings of ``Tensor.copy_`` and of indexing take
+    a device guard, which a CPU-only build of torch refuses for the dry
+    run's fake ``cuda`` tensors."""
+    torch.ops.aten.copy_.default(dst, src)
+
+
 def ell_dtype(num_topics: int, max_doc_length: int) -> torch.dtype:
     """C7 for the ELL: int16 counts and topics when K and the longest
     document (the largest count) fit, else int32."""
@@ -95,20 +107,23 @@ def ell_topk(theta: torch.Tensor, capacity: int, dtype=torch.int32):
     ``torch.topk`` breaks ties in another order, which would reorder the
     sparse prefix sum and change draws, so it is not used.  The rows are
     sorted ``THETA_ROW_BLOCK`` at a time (each row's order is its own, so
-    the ELL is the same), which bounds the sort's temporaries."""
+    the ELL is the same), which bounds the sort's temporaries.  The blocks
+    are cut with ``narrow`` and written with ``fill_block``, not with
+    Python indexing (module docstring)."""
     K = theta.shape[-1]
     capacity = min(capacity, K)
     flat = theta.reshape(-1, K)
-    counts = torch.empty((flat.shape[0], capacity), dtype=dtype,
-                         device=theta.device)
+    rows = flat.shape[0]
+    counts = torch.empty((rows, capacity), dtype=dtype, device=theta.device)
     topics = torch.empty_like(counts)
-    for r in range(0, flat.shape[0], THETA_ROW_BLOCK):
-        block = flat[r:r + THETA_ROW_BLOCK]
+    for r in range(0, rows, THETA_ROW_BLOCK):
+        m = min(THETA_ROW_BLOCK, rows - r)
+        block = flat.narrow(0, r, m)
         order = torch.sort(-block.to(torch.int64), dim=-1,
-                           stable=True).indices[:, :capacity]
-        counts[r:r + THETA_ROW_BLOCK] = torch.gather(block, -1,
-                                                     order).to(dtype)
-        topics[r:r + THETA_ROW_BLOCK] = order.to(dtype)
+                           stable=True).indices.narrow(-1, 0, capacity)
+        fill_block(counts.narrow(0, r, m),
+                   torch.gather(block, -1, order).to(dtype))
+        fill_block(topics.narrow(0, r, m), order.to(dtype))
     lead = theta.shape[:-1]
     return counts.view(*lead, capacity), topics.view(*lead, capacity)
 
@@ -122,10 +137,12 @@ def theta_to_ell(theta: torch.Tensor, capacity: int, dtype=torch.int32):
     dense sampler.  Padding entries have count 0 and add 0 to p1."""
     counts, topics = ell_topk(theta, capacity, dtype)
     flat = theta.reshape(-1, theta.shape[-1])
-    over = torch.empty(flat.shape[0], dtype=torch.bool, device=theta.device)
-    for r in range(0, flat.shape[0], THETA_ROW_BLOCK):
-        over[r:r + THETA_ROW_BLOCK] = torch.count_nonzero(
-            flat[r:r + THETA_ROW_BLOCK], dim=-1) > capacity
+    rows = flat.shape[0]
+    over = torch.empty(rows, dtype=torch.bool, device=theta.device)
+    for r in range(0, rows, THETA_ROW_BLOCK):
+        m = min(THETA_ROW_BLOCK, rows - r)
+        fill_block(over.narrow(0, r, m), torch.count_nonzero(
+            flat.narrow(0, r, m), dim=-1) > capacity)
     return counts, topics, over.view(theta.shape[:-1])
 
 

@@ -444,12 +444,12 @@ class DistributedLDA:
         v = torch.stack([stats.sparse_frac.float(),
                          stats.mean_s_over_sq.float(),
                          stats.ell_overflow.float()])
-        v = sync.maybe_all_reduce(v, self.all_group)
-        n_word = self.plan.num_word_shards
+        sparse, ssq, over = sync.maybe_all_reduce(v, self.all_group).unbind()
         return st, core_trainer.IterStats(
-            sparse_frac=v[0] / self.num_shards,
-            ell_overflow=torch.floor_divide(v[2], n_word),
-            mean_s_over_sq=v[1] / self.num_shards)
+            sparse_frac=sparse / self.num_shards,
+            ell_overflow=torch.floor_divide(over,
+                                            self.plan.num_word_shards),
+            mean_s_over_sq=ssq / self.num_shards)
 
     def log_likelihood(self, state) -> float:
         """Joint LL per token of the whole corpus (the same on every rank)."""

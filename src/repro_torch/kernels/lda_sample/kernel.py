@@ -20,14 +20,22 @@ per-token inputs and outputs; its time by the per-run scan and draws, with
 the row loads mostly hidden behind them (see the source note).
 
 Built with ``nvcc`` for ``sm_90a`` at first launch (``kernels/_build.py``)
-and bound with ctypes.  The wrapper refuses CPU tensors: ``ops.py`` sends
-those to the plain version in ``ref.py``.
+and bound with ctypes, behind the custom op ``repro_torch::lda_sample_tiles``
+(``torch.library``): its CUDA body is the ctypes launch, and its fake
+implementation gives the outputs' shapes and dtypes, so a trace on fake
+tensors (the dry run's LDA cells) reaches the op without building or
+launching anything, and ``FlopCounterMode`` counts ``ops_reckoning``.
+The wrapper refuses CPU tensors: ``ops.py`` sends those to the plain
+version in ``ref.py``.
 """
 from __future__ import annotations
 
 import ctypes
 
+import math
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.sampler import pick_search_block
 from repro_torch.kernels import _build
@@ -84,7 +92,24 @@ def lda_sample_tiles(
     ``ell_live`` must be each row's number of non-zero counts
     (``ops.live_lengths``): the kernel reads no entry past it.  Returns
     (z_new (n, t) like z_old, sparse (n, t) bool, ssq (n, t) float32 —
-    S/(S+Q) per token, 0 on padding)."""
+    S/(S+Q) per token, 0 on padding).  Through the custom op: the launch
+    is counted in its CUDA body, so a fake trace counts none."""
+    _check(tile_word, token_doc, token_mask, z_old, phi_vk, phi_sum,
+           ell_counts, ell_topics, uniforms, ell_live)
+    return _sweep_op(tile_word, token_doc, token_mask, z_old, phi_vk,
+                     phi_sum, ell_counts, ell_topics, uniforms, ell_live,
+                     float(alpha), float(beta), int(num_words_total))
+
+
+@torch.library.custom_op("repro_torch::lda_sample_tiles", mutates_args=(),
+                         device_types="cuda")
+def _sweep_op(tile_word: torch.Tensor, token_doc: torch.Tensor,
+              token_mask: torch.Tensor, z_old: torch.Tensor,
+              phi_vk: torch.Tensor, phi_sum: torch.Tensor,
+              ell_counts: torch.Tensor, ell_topics: torch.Tensor,
+              uniforms: torch.Tensor, ell_live: torch.Tensor, alpha: float,
+              beta: float, num_words_total: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     out = sweep_variant((), tile_word, token_doc, token_mask, z_old, phi_vk,
                         phi_sum, ell_counts, ell_topics, uniforms,
                         ell_live=ell_live, alpha=alpha, beta=beta,
@@ -93,11 +118,40 @@ def lda_sample_tiles(
     return out
 
 
-def sweep_variant(defines, tile_word, token_doc, token_mask, z_old, phi_vk,
-                  phi_sum, ell_counts, ell_topics, uniforms, *, ell_live,
-                  alpha, beta, num_words_total):
-    """``lda_sample_tiles`` through the build of the source with
-    ``defines`` (``()``: the shipped one), without counting the launch."""
+@_sweep_op.register_fake
+def _(tile_word, token_doc, token_mask, z_old, phi_vk, phi_sum, ell_counts,
+      ell_topics, uniforms, ell_live, alpha, beta, num_words_total):
+    n, t = z_old.shape
+    return (torch.empty_like(z_old),
+            z_old.new_empty((n, t), dtype=torch.bool),
+            z_old.new_empty((n, t), dtype=torch.float32))
+
+
+def ops_reckoning(n: int, t: int, K: int) -> int:
+    """The float operations of one sweep over ``n`` tiles of ``t`` slots at
+    ``K`` topics, reckoned from the shapes alone: ``chip_smoke.py``'s
+    ``k1_bytes_and_ops`` with its data-dependent terms taken at the
+    tiling's shape — 4 per topic for each tile's word (p* and its prefix
+    sums; a word over several tiles counted once a tile), and per slot 2
+    for the side and a dense draw's search (``pick_search_block``'s block
+    sums, then the sums inside one block).  The 2 per live ELL entry that
+    each run of a document reads depend on the ELL's live lengths, which
+    the shapes do not give, and are left out."""
+    bw = pick_search_block(K)
+    steps = math.ceil(math.log2(max(K // bw, 1))) + math.ceil(
+        math.log2(max(bw, 1)))
+    return sum((4 * K * n, n * t * (2 + steps)))
+
+
+@register_flop_formula(torch.ops.repro_torch.lda_sample_tiles)
+def _sweep_flops(tile_word, token_doc, token_mask, z_old, phi_vk, *args,
+                 out_shape=None, **kwargs) -> int:
+    return ops_reckoning(z_old[0], z_old[1], phi_vk[1])
+
+
+def _check(tile_word, token_doc, token_mask, z_old, phi_vk, phi_sum,
+           ell_counts, ell_topics, uniforms, ell_live) -> torch.device:
+    """The arguments' devices, dtypes and shapes (real or fake tensors)."""
     dev = _build.require_cuda(z_old, "lda_sample_tiles",
                               "ref.lda_sample_tiles_ref")
     n, t = z_old.shape
@@ -116,6 +170,20 @@ def sweep_variant(defines, tile_word, token_doc, token_mask, z_old, phi_vk,
     chk("uniforms", uniforms, torch.float32, (n, t, 2), dev)
     if not 1 <= P <= K:
         raise ValueError(f"ELL width {P} must be in [1, K={K}]")
+    return dev
+
+
+def sweep_variant(defines, tile_word, token_doc, token_mask, z_old, phi_vk,
+                  phi_sum, ell_counts, ell_topics, uniforms, *, ell_live,
+                  alpha, beta, num_words_total):
+    """``lda_sample_tiles``' launch through the build of the source with
+    ``defines`` (``()``: the shipped one), on real CUDA tensors, without
+    counting it."""
+    dev = _check(tile_word, token_doc, token_mask, z_old, phi_vk, phi_sum,
+                 ell_counts, ell_topics, uniforms, ell_live)
+    n, t = z_old.shape
+    K = phi_vk.shape[1]
+    P = ell_counts.shape[1]
     smem = smem_bytes(t, K, P, ell_counts.element_size())
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"tile {t} x K {K} x P {P} needs {smem} bytes of "

@@ -25,7 +25,12 @@ mask and the segment table once and writing the (V, K) output once; see
 the source note.
 
 Built with ``nvcc`` for ``sm_90a`` at first launch (``kernels/_build.py``)
-and bound with ctypes.  The wrappers refuse CPU tensors: ``ops.py`` sends
+and bound with ctypes, behind the custom ops ``repro_torch::phi_delta_tiles``
+and ``repro_torch::phi_update_tiles`` (``torch.library``): their CUDA
+bodies are the ctypes launches, their fake implementations give the
+(V, K) int32 output, so a trace on fake tensors reaches them without
+building or launching anything, and ``FlopCounterMode`` counts
+``ops_reckoning``.  The wrappers refuse CPU tensors: ``ops.py`` sends
 those to the plain versions in ``ref.py``.
 """
 from __future__ import annotations
@@ -33,6 +38,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -83,17 +89,48 @@ def phi_delta_tiles(segments, z_new, z_old, token_mask, num_words: int,
     masked tokens.  segments (S, 4) int32 from ``ops.segment_table`` on the
     tiling of z; z_new, z_old (n, t) int16 or int32 (the same);
     token_mask (n, t) bool.  Launches on the current stream and does not
-    synchronise."""
+    synchronise (through the custom op: counted in its CUDA body)."""
+    dev, _, _ = _check_slots(segments, (z_new, z_old), token_mask)
+    _check_segments(segments, dev)
+    return _delta_op(segments, z_new, z_old, token_mask, int(num_words),
+                     int(num_topics))
+
+
+@torch.library.custom_op("repro_torch::phi_delta_tiles", mutates_args=(),
+                         device_types="cuda")
+def _delta_op(segments: torch.Tensor, z_new: torch.Tensor,
+              z_old: torch.Tensor, token_mask: torch.Tensor, num_words: int,
+              num_topics: int) -> torch.Tensor:
     out = delta_variant((), segments, z_new, z_old, token_mask, num_words,
                         num_topics)
     phi_delta_tiles.launches += 1
     return out
 
 
+@_delta_op.register_fake
+def _(segments, z_new, z_old, token_mask, num_words, num_topics):
+    return z_new.new_empty((num_words, num_topics), dtype=torch.int32)
+
+
+def ops_reckoning(n: int, t: int, delta: bool) -> int:
+    """The integer operations of one count over ``n`` tiles of ``t`` slots,
+    reckoned from the shapes alone: ``chip_smoke.py``'s
+    ``count_bytes_and_ops`` (one add per real token and z array: two for a
+    delta) with every slot counted as a real token — the shapes do not say
+    how many are padding."""
+    return n * t * (2 if delta else 1)
+
+
+@register_flop_formula(torch.ops.repro_torch.phi_delta_tiles)
+def _delta_flops(segments, z_new, *args, out_shape=None, **kwargs) -> int:
+    return ops_reckoning(z_new[0], z_new[1], True)
+
+
 def delta_variant(defines, segments, z_new, z_old, token_mask, num_words,
                   num_topics):
-    """``phi_delta_tiles`` through the build of the source with ``defines``
-    (``()``: the shipped one), without counting the launch."""
+    """``phi_delta_tiles``' launch through the build of the source with
+    ``defines`` (``()``: the shipped one), on real CUDA tensors, without
+    counting it."""
     dev, n, t = _check_slots(segments, (z_new, z_old), token_mask)
     _check_segments(segments, dev)
     out = torch.empty((num_words, num_topics), dtype=torch.int32, device=dev)
@@ -116,17 +153,35 @@ def phi_update_tiles(segments, zero_rows, z, token_mask, num_words: int,
     the rows that no sole segment writes whole (a row list made for
     another ``num_words`` leaves rows unset); z (n, t) int16 or int32;
     token_mask (n, t) bool.  Launches on the current stream and does not
-    synchronise."""
+    synchronise (through the custom op: counted in its CUDA body)."""
+    _check_update(segments, zero_rows, z, token_mask, num_words)
+    return _update_op(segments, zero_rows, z, token_mask, int(num_words),
+                      int(num_topics))
+
+
+@torch.library.custom_op("repro_torch::phi_update_tiles", mutates_args=(),
+                         device_types="cuda")
+def _update_op(segments: torch.Tensor, zero_rows: torch.Tensor,
+               z: torch.Tensor, token_mask: torch.Tensor, num_words: int,
+               num_topics: int) -> torch.Tensor:
     out = update_variant((), segments, zero_rows, z, token_mask, num_words,
                          num_topics)
     phi_update_tiles.launches += 1
     return out
 
 
-def update_variant(defines, segments, zero_rows, z, token_mask, num_words,
-                   num_topics):
-    """``phi_update_tiles`` through the build of the source with
-    ``defines`` (``()``: the shipped one), without counting the launch."""
+@_update_op.register_fake
+def _(segments, zero_rows, z, token_mask, num_words, num_topics):
+    return z.new_empty((num_words, num_topics), dtype=torch.int32)
+
+
+@register_flop_formula(torch.ops.repro_torch.phi_update_tiles)
+def _update_flops(segments, zero_rows, z, *args, out_shape=None,
+                  **kwargs) -> int:
+    return ops_reckoning(z[0], z[1], False)
+
+
+def _check_update(segments, zero_rows, z, token_mask, num_words):
     dev, n, t = _check_slots(segments, (z,), token_mask)
     _check_segments(segments, dev)
     _build.check_tensor("zero_rows", zero_rows, torch.int32,
@@ -134,6 +189,15 @@ def update_variant(defines, segments, zero_rows, z, token_mask, num_words,
     if zero_rows.shape[0] > num_words:
         raise ValueError(f"zero_rows lists {zero_rows.shape[0]} rows, more "
                          f"than num_words = {num_words}")
+    return dev, n, t
+
+
+def update_variant(defines, segments, zero_rows, z, token_mask, num_words,
+                   num_topics):
+    """``phi_update_tiles``' launch through the build of the source with
+    ``defines`` (``()``: the shipped one), on real CUDA tensors, without
+    counting it."""
+    dev, n, t = _check_update(segments, zero_rows, z, token_mask, num_words)
     out = torch.empty((num_words, num_topics), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _lib(defines).phi_update_tiles_launch(

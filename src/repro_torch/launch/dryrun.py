@@ -56,13 +56,47 @@ it.  ``run_config`` dry-runs a
 configuration at a batch and sequence the card has run, so that the
 memory model can be held against the card's measured peak.
 
-Out of scope: ``run_lda_cell``, the reference's LDA cells (ROADMAP item
-13i).  The LDA trainer's host-side partition tiles a real corpus, and its
-CUDA kernels do not run on fake tensors; the four-card LDA runs of
-``chip_smoke.py`` stand in for it.
+Each LM record says whether its residual was sequence-sharded over tp
+(``sp``, and ``sp_encoder`` for whisper's encoder; ``sequence_parallel``).
+
+The LDA cells (``run_lda_cell``, ``--lda``), the paper's own workload: for
+each mode (1d, 2d, and both over the int16 byte wire) rank 0's
+``DistributedLDA`` is built on the fake group with its host tiling real
+(the partition tiles only this rank's shard), then one ``step`` is traced
+on fake ``cuda`` tensors of its shard, its state and its uniforms
+(``trace_lda_step``), so that ``ops.py`` takes the kernel route: K1, K2
+and K4 are ``torch.library`` custom ops whose fake implementations give
+their outputs and whose FLOP formulas are the kernels' shape reckonings.
+Nothing is built and nothing launched.  What the cells model: the bytes a
+card holds (phi, phi_sum, z, the tiles, K2's table, the uniforms, and the
+step's transients, the ELL among them), the FLOPs, the op bytes of the
+kernels' operands and of the plain PyTorch around them, and every
+collective by the mesh axes of its group and by op.  What they cannot
+see: the kernels' own traffic beyond their operands (K1's ELL and phi
+row reads, K2's histogram flushes), and NCCL's choice of algorithm (the
+bytes are the results', as the reference counts them).  What the step
+met on fake tensors, and how each was handled:
+
+* K2's segment table has a data-dependent length (``nonzero`` over the
+  tiling): built on the host from the real tiling, with the library's
+  segment length mirrored in ``kernels/phi_update/contract.py`` (no
+  build), and put in the fake shard's cache;
+* the K1 wrapper's shared-memory check and ``tiles_per_cta`` read the
+  built library: they run in the op's CUDA body only;
+* the ELL's live lengths (``ops.live_lengths``) are a reduction of
+  static shape, and the theta -> ELL row blocks a loop over the shape:
+  both trace as they are; the ELL's true live entries are not known, so
+  K1's reckoning leaves their operations out;
+* Python indexing, ``Tensor.copy_`` and a copying ``.contiguous()`` of a
+  fake ``cuda`` tensor raise on a CPU-only build of torch (their bindings
+  take a CUDA device guard): the iteration's code cuts with ``narrow`` /
+  ``unbind`` and writes with ``updates.fill_block``;
+* no ``.item()`` or host sync lies on the step: the uniforms are passed
+  in, the stats stay tensors.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --chips 256 --out results/dryrun.json
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --lda --chips 256
 """
 from __future__ import annotations
 
@@ -135,6 +169,7 @@ class Trace(TorchDispatchMode):
         self.held = {t.untyped_storage()._cdata for t in held}
         self.phase = "forward"
         self.op_bytes = 0
+        self.kernels: dict[str, int] = {}   # the port's custom ops called
         self.collectives: list[dict] = []
         self.live: dict[int, tuple[int, bool]] = {}   # storage: bytes, fwd
         self.current = self.forward = 0
@@ -182,6 +217,9 @@ class Trace(TorchDispatchMode):
                 shape=list(res.shape), bytes=_nbytes(res),
                 backward=_in_backward(), source=_source()))
             return out
+        if func.namespace == "repro_torch":
+            name = func.__name__.split(".")[0]
+            self.kernels[name] = self.kernels.get(name, 0) + 1
         outs = [a for a in pytree_leaves(out) if isinstance(a, torch.Tensor)]
         if outs and not func.is_view:     # not a view, a size or a device
             self.op_bytes += sum(_nbytes(t) for t in ins + outs)
@@ -414,6 +452,20 @@ def memory(cell: specs_lib.Cell, mesh, trace: bool = True) -> dict:
     return out
 
 
+def sequence_parallel(cell: specs_lib.Cell, S: int) -> dict:
+    """Whether the cell's step keeps its residual sequence-sharded over tp
+    (``ShardingPolicy.with_sequence``): ``sp`` for the decoder's stack
+    over its ``S`` tokens and any VLM prefix, ``sp_encoder`` for an
+    encoder's frames.  Decode never does."""
+    if cell.kind == "decode":
+        return dict(sp=False)
+    cfg = cell.cfg
+    out = dict(sp=cell.policy.with_sequence(S + cfg.vision_tokens).seq)
+    if cfg.encoder_layers:
+        out["sp_encoder"] = cell.policy.with_sequence(cfg.encoder_frames).seq
+    return out
+
+
 def _mesh_name(chips: int, pods: int) -> str:
     model = min(chips, mesh_lib.HOST_CARDS)
     return "x".join(str(n) for n in ((pods,) if pods > 1 else ())
@@ -442,7 +494,7 @@ def run_cell(arch: str, shape: str, chips: int = 256, pods: int = 1,
             mem = serve_memory(cell, mesh, trace=probe)
             costs = (probe_serve_costs(cell.cfg, cell.kind, B, S, mesh)
                      if probe else None)
-    out.update(status="ok", kind=cell.kind,
+    out.update(status="ok", kind=cell.kind, **sequence_parallel(cell, S),
                t_trace=round(time.time() - t0, 1),
                micro=cell.micro_batches, memory=mem,
                fits_hbm=bool(mem["peak_device_bytes"] <= mesh_lib.HBM_BYTES))
@@ -461,11 +513,13 @@ def run_config(cfg, batch: int, seq: int, mesh_shape: tuple) -> dict:
 
         mesh = init_device_mesh("cpu", tuple(mesh_shape),
                                 mesh_dim_names=("data", "model"))
-        mem = memory(specs_lib.train_cell(cfg, batch, seq, mesh), mesh)
+        cell = specs_lib.train_cell(cfg, batch, seq, mesh)
+        mem = memory(cell, mesh)
         costs = probe_costs(cfg, batch, seq, mesh)
     return dict(arch=cfg.name, batch=batch, seq=seq,
                 mesh="x".join(map(str, mesh_shape)), chips=world,
-                status="ok", memory=mem, costs=costs,
+                status="ok", **sequence_parallel(cell, seq), memory=mem,
+                costs=costs,
                 fits_hbm=bool(mem["peak_device_bytes"] <= mesh_lib.HBM_BYTES))
 
 
@@ -493,6 +547,209 @@ def card_runs() -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LDA cells: the paper's own workload on the production mesh
+# ---------------------------------------------------------------------------
+
+# (V, mean document length) of the paper's Table 3 corpora
+LDA_DATASETS = {"nytimes": (101_636, 332), "pubmed": (141_043, 92)}
+# (mode, compressed_sync): the reference's four
+LDA_MODES = (("1d", False), ("2d", False), ("1d_c16", True),
+             ("2d_c16", True))
+
+
+def lda_stand_in(dataset: str, n_dev: int):
+    """The reference's stand-in corpus for ``dataset`` on ``n_dev`` cards:
+    ``max(n_dev * 8, 4096)`` Zipf documents at the dataset's full V and
+    mean length, seed 0 (the model-side arrays, phi's (V, K), are full
+    size; the documents are cut so that the host tiles them quickly)."""
+    from repro_torch.data import synthetic
+
+    V, avg_len = LDA_DATASETS[dataset]
+    return synthetic.zipf_corpus(num_docs=max(n_dev * 8, 4096), num_words=V,
+                                 avg_doc_len=avg_len, seed=0)
+
+
+def lda_config(num_topics: int = 1024, compressed: bool = False):
+    """The reference's LDA cell config."""
+    from repro_torch.core import trainer as lda_trainer
+
+    return lda_trainer.LDAConfig(num_topics=num_topics, tile_tokens=256,
+                                 tiles_per_step=16,
+                                 compressed_sync=compressed)
+
+
+def _fake_cuda(t: torch.Tensor) -> torch.Tensor:
+    """A fake ``cuda`` tensor of ``t``'s shape and dtype (under a
+    ``FakeTensorMode``): no card, no values."""
+    return torch.empty(t.shape, dtype=t.dtype, device="cuda")
+
+
+def trace_lda_step(dl) -> dict:
+    """One ``DistributedLDA.step`` of this rank (``dl``, built on the host
+    on a fake group) traced on fake ``cuda`` tensors of its shard, its
+    state and its uniforms, so that ``ops.py`` takes the kernel route and
+    K1, K2 and K4 are reached as custom ops: FLOPs (their reckonings
+    included), op bytes, the collectives by the groups' axes and op, the
+    kernels called, the peak bytes above the held tensors, and the held
+    bytes by kind."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.core import trainer as lda_trainer
+    from repro_torch.core import updates
+    from repro_torch.kernels.phi_update import contract as phi_contract
+    from repro_torch.kernels.phi_update import ops as phi_ops
+
+    cfg, shard = dl.cfg, dl.shard
+    K = cfg.num_topics
+    n, t = shard.token_doc.shape
+    # K2's table, built on the host from the real tiling (its length is
+    # data: a fake tiling cannot give it); the segment length is the
+    # library's build constant, mirrored in the kernel's contract
+    seg = phi_ops.segment_table(shard.tile_word, shard.tile_first,
+                                phi_contract.SEGMENT_TILES)
+    fake = FakeTensorMode()
+    with fake:
+        fshard = dataclasses.replace(shard, **{
+            f: _fake_cuda(getattr(shard, f)) for f in shard._TENSORS})
+        fseg = _fake_cuda(seg)
+        fshard._derived["phi_delta_segments"] = fseg
+        state = lda_trainer.LDAState(
+            z=torch.empty((n, t), dtype=cfg.topic_dtype, device="cuda"),
+            phi_vk=torch.empty((shard.num_words, K), dtype=torch.int32,
+                               device="cuda"),
+            phi_sum=torch.empty((K,), dtype=torch.int32, device="cuda"),
+            iteration=0)
+        n_all = n + (-n % cfg.micro_chunks)
+        uni = torch.empty((n_all, t, 2), dtype=torch.float32, device="cuda")
+        heavy = None if dl.heavy_rows is None else _fake_cuda(dl.heavy_rows)
+    tiles = [getattr(fshard, f) for f in shard._TENSORS]
+    held = tiles + [fseg, state.z, state.phi_vk, state.phi_sum, uni] + (
+        [heavy] if heavy is not None else [])
+    axes = {}
+    for group, names in ((dl.data_group, dl.plan.doc_axes),
+                         (dl.model_group, dl.plan.word_axes),
+                         (dl.all_group,
+                          dl.plan.doc_axes + dl.plan.word_axes)):
+        if group is not None:
+            axes[group.group_name] = "+".join(names)
+    flops = FlopCounterMode(display=False)
+    trace = Trace(axes, held)
+    real = dl.shard, dl.heavy_rows
+    dl.shard, dl.heavy_rows = fshard, heavy
+    try:
+        with fake, flops, trace:
+            out = dl.step(state, uni)
+            del out
+    finally:
+        dl.shard, dl.heavy_rows = real
+    P = min(cfg.ell_capacity or min(K, shard.max_doc_length), K)
+    ell = updates.ell_dtype(K, shard.max_doc_length)
+    size = lambda a: a.numel() * a.element_size()  # noqa: E731
+    state_bytes = dict(
+        phi=size(state.phi_vk), phi_sum=size(state.phi_sum),
+        z=size(state.z), tiles=sum(size(a) for a in tiles),
+        k2_tables=size(fseg), uniforms=size(uni),
+        heavy_rows=0 if heavy is None else size(heavy),
+        # the ELL lives through the sweep: it is among the transients
+        ell=2 * shard.num_docs_local * P * torch.empty(
+            (), dtype=ell).element_size())
+    held_bytes = sum(v for k, v in state_bytes.items() if k != "ell")
+    return dict(flops=float(flops.get_total_flops()),
+                op_bytes=float(trace.op_bytes), coll=trace.coll_bytes(),
+                collectives=trace.collectives, kernels=dict(trace.kernels),
+                peak=trace.peak, state_bytes=state_bytes,
+                peak_device_bytes=held_bytes + trace.peak)
+
+
+def run_lda_cell(chips: int = 256, pods: int = 1, dataset: str = "nytimes",
+                 num_topics: int = 1024, modes=LDA_MODES,
+                 corpus=None) -> dict:
+    """The paper's own workload on the production mesh of ``chips`` cards
+    a pod, as the reference's ``run_lda_cell``: ``lda_modes`` on the
+    reference's stand-in corpus (or ``corpus``)."""
+    with fake_group(chips * pods):
+        mesh = mesh_lib.make_production_mesh(chips, pods)
+        if corpus is None:
+            corpus = lda_stand_in(dataset, chips * pods)
+        results = lda_modes(mesh, corpus, num_topics, modes)
+    return dict(arch=f"lda-{dataset}-k{num_topics}",
+                mesh=_mesh_name(chips, pods), chips=chips * pods,
+                docs=corpus.num_docs, tokens=corpus.num_tokens,
+                status="ok", modes=results)
+
+
+def lda_modes(mesh, corpus, num_topics: int = 1024,
+              modes=LDA_MODES) -> dict:
+    """For each of ``modes`` (1d: the documents over every axis of
+    ``mesh``; 2d: over the axes but "model", the vocabulary over "model";
+    ``_c16``: the int16 byte wire) this rank's ``DistributedLDA`` of
+    ``corpus`` under the reference's config, its step traced
+    (``trace_lda_step``).  A record per mode: ``peak_device_bytes``,
+    ``flops``, ``bytes`` (op bytes), ``coll_bytes`` ({op: {axes: bytes}}),
+    ``state_bytes`` by kind, ``temp_bytes``, the ``launches`` of K1, K2
+    and K4 in the step, the shard's tiles, documents and words, and
+    ``t_trace`` (the host tiling excluded)."""
+    from repro_torch.distributed.partition import DistributedLDA
+    from repro_torch.kernels.lda_sample import kernel as k1
+    from repro_torch.kernels.phi_update import kernel as k24
+
+    names = tuple(mesh.mesh_dim_names)
+    results = {}
+    for mode, comp in modes:
+        base = mode.split("_")[0]
+        doc_axes = (names if base == "1d"
+                    else tuple(a for a in names if a != "model"))
+        dl = DistributedLDA(lda_config(num_topics, comp), mesh, corpus,
+                            mode=base, doc_axes=doc_axes,
+                            word_axes=("model",) if base == "2d" else ())
+        t0 = time.time()
+        r = trace_lda_step(dl)
+        results[mode] = dict(
+            t_trace=round(time.time() - t0, 1),
+            peak_device_bytes=r["peak_device_bytes"], flops=r["flops"],
+            bytes=r["op_bytes"], coll_bytes=r["coll"],
+            state_bytes=r["state_bytes"], temp_bytes=r["peak"],
+            launches={f.__name__: r["kernels"].get(f.__name__, 0)
+                      for f in (k1.lda_sample_tiles, k24.phi_delta_tiles,
+                                k24.phi_update_tiles)},
+            tiles=int(dl.shard.token_doc.shape[0]),
+            tile_tokens=int(dl.shard.token_doc.shape[1]),
+            docs_local=int(dl.shard.num_docs_local),
+            words_local=int(dl.shard.num_words),
+            heavy_rows=0 if dl.heavy_rows is None
+            else int(dl.heavy_rows.numel()))
+    return results
+
+
+def lda_card_run() -> dict:
+    """The dry run of the training ``chip_smoke.py`` runs on one card: the
+    full NYTimes-shaped corpus (``nytimes_like(1.0)``) and
+    ``lda_nytimes.CONFIG`` on a one-rank mesh, 1d; its peak is held
+    against the card's measured peak of one iteration
+    (``train_step_memory``)."""
+    from repro_torch.configs import lda_nytimes
+    from repro_torch.data.synthetic import nytimes_like
+    from repro_torch.distributed.partition import DistributedLDA
+
+    corpus = nytimes_like(1.0, seed=0)
+    with fake_group(1):
+        mesh = mesh_lib.make_production_mesh(1)
+        t0 = time.time()
+        dl = DistributedLDA(lda_nytimes.CONFIG, mesh, corpus, mode="1d",
+                            doc_axes=tuple(mesh.mesh_dim_names),
+                            word_axes=())
+        t_build = time.time() - t0
+        t0 = time.time()
+        r = trace_lda_step(dl)
+    r.pop("collectives")
+    return dict(arch="lda-nytimes-card", docs=corpus.num_docs,
+                tokens=corpus.num_tokens, status="ok",
+                t_build=round(t_build, 1), t_trace=round(time.time() - t0, 1),
+                **r)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -506,12 +763,41 @@ def main(argv=None) -> int:
     ap.add_argument("--card-runs", action="store_true",
                     help="dry-run the configurations the card trained "
                          "(CARD_RUNS) instead of the cells")
+    ap.add_argument("--lda", action="store_true",
+                    help="the LDA cells (NYTimes and PubMed, K = 1024, four "
+                         "modes) instead of the LM cells")
+    ap.add_argument("--lda-card-run", action="store_true",
+                    help="the one-rank NYTimes training chip_smoke.py runs "
+                         "(the full corpus: minutes of host tiling)")
     args = ap.parse_args(argv)
 
     if args.card_runs:
         for r in card_runs():
             print(json.dumps(r), flush=True)
         return 0
+    if args.lda_card_run:
+        print(json.dumps(lda_card_run()), flush=True)
+        return 0
+    if args.lda:
+        results = []
+        for ds in LDA_DATASETS:
+            try:
+                r = run_lda_cell(args.chips, args.pods, ds)
+            except Exception as e:  # noqa: BLE001 (a failed cell is a record)
+                r = dict(arch=f"lda-{ds}", mesh=_mesh_name(args.chips,
+                                                           args.pods),
+                         status="fail", error=f"{type(e).__name__}: {e}",
+                         tb=traceback.format_exc()[-2000:])
+            print(json.dumps(r), flush=True)
+            results.append(r)
+        if args.out:
+            os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1)
+        bad = [r for r in results if r["status"] == "fail"]
+        print(f"\n{len(results)} LDA cells, {len(bad)} failures",
+              file=sys.stderr)
+        return 1 if bad else 0
     todo = cells() if args.all else [(args.arch, args.shape)]
     results = []
     for arch, shape in todo:

@@ -18,7 +18,10 @@ step; here the caller's state is the one updated).
 Under a ``ShardingPolicy`` (training over a mesh) the heads are sharded
 over tp where they divide (``shard_if``, ``param_specs``): column-parallel
 q, k, v on this rank's heads, the recipe unchanged on them, and the
-row-parallel ``wo`` output all-reduced over tp.  When the query heads
+row-parallel ``wo`` output all-reduced over tp, or under sequence
+parallelism (``policy.seq``) the input all-gathered and the output
+reduce-scattered along S.  The cross attention's keys and values read
+the encoder's output whole (``transformer.encode`` gathers it).  When the query heads
 divide and the KV heads do not (GQA with few KV heads), ``wk`` and ``wv``
 are replicated and each rank computes the KV heads its query heads read
 (their *global* groups).  When the query heads do not divide, the layer is
@@ -241,10 +244,12 @@ def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     (window + chunk) region each block can see.  Under autograd each
     block's scores are recomputed in the backward (the reference's
     per-chunk ``jax.checkpoint``), so no layer keeps its S x S float32
-    scores.  Under a policy, this rank's heads (module docstring)."""
+    scores.  Under a policy, this rank's heads (module docstring); under
+    sequence parallelism ``x`` is this rank's block of the sequence,
+    all-gathered before the projections, and so is the result."""
     p, per_head, split = _local_weights(p, cfg, policy)
-    if split:
-        x = parallel.copy_in(x, policy.ctx)
+    if policy.enabled:
+        x = parallel.seq_enter(x, policy.ctx, seq=policy.seq, split=split)
     q, k, v = _project_qkv(p, cfg, x, positions, per_head)
     S = x.shape[1]
     if not causal or S <= 2 * Q_CHUNK:
@@ -259,7 +264,9 @@ def attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
         else:
             out = _chunked_causal(q, k, v, cfg, window)
     y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
-    return parallel.reduce_out(y, policy.ctx) if split else y
+    if policy.enabled:
+        y = parallel.seq_leave(y, policy.ctx, seq=policy.seq, split=split)
+    return y
 
 
 def _chunked_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -450,8 +457,8 @@ def cross_attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
     if policy.enabled and not policy.weight_gather:
         return _mesh_decode_cross(p, cfg, x, enc_kv, policy)
     p, _, split = _local_weights(p, cfg, policy)
-    if split:
-        x = parallel.copy_in(x, policy.ctx)
+    if policy.enabled:
+        x = parallel.seq_enter(x, policy.ctx, seq=policy.seq, split=split)
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
     if p.q_norm is not None:
         q = rms_norm(p.q_norm, q, cfg.norm_eps, False)
@@ -463,7 +470,9 @@ def cross_attention(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,
         out = torch.cat([remat(_sdpa, q[:, s:s + Q_CHUNK], k, v, None, cfg)
                          for s in range(0, Sq, Q_CHUNK)], dim=1)
     y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(x.dtype))
-    return parallel.reduce_out(y, policy.ctx) if split else y
+    if policy.enabled:
+        y = parallel.seq_leave(y, policy.ctx, seq=policy.seq, split=split)
+    return y
 
 
 def _mesh_decode_cross(p: AttnParams, cfg: ModelConfig, x: torch.Tensor,

@@ -72,11 +72,21 @@ class ShardingPolicy:
     dp: data-parallel axes (batch; also the FSDP shard axis for params/opt).
     tp: tensor-parallel axis (heads / FFN hidden / vocab / experts).
     fsdp: shard params & optimizer over dp too (ZeRO-3 style).
-    sp: the reference keeps the saved residual stream sequence-sharded over
-        tp between layers.  Carried for parity with the reference's policy
-        (``act`` reads it) and read by no layer of the port: the port keeps
-        the residual replicated over tp whatever it says (the same values;
-        sequence parallelism is ROADMAP item 13g).
+    sp: keep the residual stream sequence-sharded over tp between layers
+        (Megatron's sequence parallelism; the reference's ``act(seq_shard=
+        True)``).  A stack of layers over a sequence of S positions runs so
+        when ``with_sequence(S).seq`` holds: sp on, a tp axis of more than
+        one rank, ``weight_gather`` on (train and prefill; decode's S = 1
+        never), and S a multiple of the tp size.  Each tp rank then holds
+        (B, S / tp, D), its block of the sequence in tp-rank order; norms
+        and residual adds run on it, each layer all-gathers it along S
+        where the reference's ``copy_in`` was and reduce-scatters its
+        output along S where ``reduce_out`` was (``parallel.seq_enter`` /
+        ``seq_leave``).  Where S does not divide (GSPMD would pad it:
+        whisper-large-v3's 1,500 frames at tp = 8, a VLM prefix plus its
+        tokens) that stack keeps the residual replicated over tp.
+    seq: set by ``with_sequence`` only: the layers' input is this rank's
+        block of the sequence.
     mesh: the ``DeviceMesh``.  ``weight_gather``: gather FSDP weights
         before their matmuls (train and prefill).  The reference turns it
         off for decode, where a token's activations are KBs and the
@@ -91,6 +101,7 @@ class ShardingPolicy:
     enabled: bool = False
     mesh: Any = None
     weight_gather: bool = True
+    seq: bool = False
 
     # canonical specs -------------------------------------------------------
     def batch(self) -> Any:
@@ -175,6 +186,29 @@ class ShardingPolicy:
             return w
         from .parallel import reshard
         return reshard(w, stored, spec, self.ctx)
+
+    def with_sequence(self, S: int) -> "ShardingPolicy":
+        """This policy for a stack of layers over ``S`` positions: with
+        ``seq`` set where the residual is sequence-sharded (the ``sp``
+        rule above), else with it cleared.  The mesh context carries
+        over."""
+        seq = bool(self.enabled and self.sp and self.tp and self.weight_gather
+                   and self.tp_size() > 1 and S % self.tp_size() == 0)
+        if seq == self.seq:
+            return self
+        out = dataclasses.replace(self, seq=seq)
+        if "ctx" in self.__dict__:
+            out.__dict__["ctx"] = self.ctx
+        return out
+
+    def seq_weight(self, w: torch.Tensor) -> torch.Tensor:
+        """A weight replicated over tp that reads this rank's block of the
+        sequence (a norm's): under ``seq`` its gradient, a sum over this
+        rank's positions, is summed over tp (``parallel.copy_in``)."""
+        if not self.seq:
+            return w
+        from .parallel import copy_in
+        return copy_in(w, self.ctx)
 
 
 NO_SHARDING = ShardingPolicy()

@@ -199,7 +199,10 @@ def moe_ffn_ep(p: MoEParams, cfg: ModelConfig, x: torch.Tensor,
 
     When S divides over tp (and S > 1) each tp rank routes its block of the
     sequence (``tp_slice``), with the capacity ``ep_capacity`` of its own
-    token count, and the output's blocks are all-gathered over tp.  Else
+    token count, and the output's blocks are all-gathered over tp.  Under
+    sequence parallelism (``policy.seq``) ``x`` is that block already: it
+    is routed as it is and its output stays on this rank, with no slice,
+    no gather and no ``copy_in`` (each rank's tokens are its own).  Else
     (S = 1, or S not divisible) every tp rank routes all of its rows, as
     the reference's ``P(dp, None, None)`` does: each expert then sees tp
     copies of every token, so the output's gradient is divided by tp on
@@ -230,10 +233,13 @@ def moe_ffn_ep(p: MoEParams, cfg: ModelConfig, x: torch.Tensor,
         wd = policy.gather_fsdp(p.w_down, own, sp.w_down)
 
     S, D = x.shape[1], x.shape[2]
-    seq = S % n == 0 and S > 1
-    xl = parallel.copy_in(x, ctx)
-    if seq:
-        xl = parallel.tp_slice(xl, 1, ctx)
+    if policy.seq:      # x is this rank's block of the sequence already
+        xl = x
+    else:
+        seq = S % n == 0 and S > 1
+        xl = parallel.copy_in(x, ctx)
+        if seq:
+            xl = parallel.tp_slice(xl, 1, ctx)
     Bl, Sl = xl.shape[0], xl.shape[1]
     T = Bl * Sl
     C = ep_capacity(T, cfg)
@@ -246,6 +252,8 @@ def moe_ffn_ep(p: MoEParams, cfg: ModelConfig, x: torch.Tensor,
     ye = experts(_to_owners(dispatch(xt, r, E, C), ctx), wg, wu, wd,
                  ctx if decode else None)
     y = combine(_from_owners(ye, ctx), r, T).reshape(Bl, Sl, D)
+    if policy.seq:
+        return y
     if seq:
         return parallel.tp_gather(y, 1, ctx)
     if n > 1:   # the same value; the gradient divided by tp

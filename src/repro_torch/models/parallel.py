@@ -27,10 +27,23 @@ whose backward is its transpose:
 * ``tp_slice`` / ``tp_gather``: this rank's block of a tensor replicated
   over tp (the backward pads the gradient with zeros), and the blocks of
   every tp rank put back together (the backward takes this rank's block).
+* ``seq_enter`` / ``seq_leave`` (tp, sequence parallelism: the
+  residual is (B, S / tp, D) on each rank between layers, the policy's
+  ``seq``): a layer's input all-gathered along S where ``copy_in`` would
+  be (the backward reduce-scatters), its row-parallel output
+  reduce-scattered along S where ``reduce_out`` would be (the backward
+  all-gathers).  A gather and a scatter move what one all-reduce moves
+  (a block's recompute gathers its MLP's input once more); the saved
+  block inputs are a tp-th of the replicated ones.  A layer replicated over tp (query heads
+  that do not divide) gathers its input with a split backward and keeps
+  this rank's block of its output with a gathering one; ``seq_scatter``
+  cuts a tensor whole on every rank (a VLM's prefixed embeddings, the
+  encoder's frames) into the rank's block.
 * ``vocab_embed`` and ``vocab_cross_entropy``: the embedding lookup and
   the cross entropy over a vocabulary sharded over tp (masked lookup plus
-  all-reduce; max, sum of exponentials and the gold logit all-reduced,
-  the padded slots masked on their own shard).
+  all-reduce, or reduce-scatter along S under sequence parallelism; max,
+  sum of exponentials and the gold logit all-reduced, the padded slots
+  masked on their own shard).
 
 Serving records no graph, and decode keeps its weights where they lie
 (the reference's ``weight_gather=False``): ``dp_dense`` multiplies this
@@ -185,6 +198,35 @@ class _Gather(torch.autograd.Function):
         return g, None, None, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter of ``x`` along ``dim`` over tp; the backward
+    all-gathers the gradient."""
+
+    @staticmethod
+    def forward(fctx, x, dim, ctx):
+        fctx.dim, fctx.ctx = dim, ctx
+        return _reduce_scatter(x, dim, ctx.tp, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_gather(g, fctx.dim, fctx.ctx.tp, fctx.ctx), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's tp block of ``x`` (complete on every rank) along
+    ``dim``; the backward all-gathers the gradient, so the computation
+    that made ``x`` sees the whole gradient on every rank."""
+
+    @staticmethod
+    def forward(fctx, x, dim, ctx):
+        fctx.dim, fctx.ctx = dim, ctx
+        return _split(x, dim, ctx.tp, ctx).contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_gather(g, fctx.dim, fctx.ctx.tp, fctx.ctx), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(fctx, x, ctx):
@@ -214,6 +256,45 @@ def reduce_out(x: torch.Tensor, ctx: MeshContext, axes=None) -> torch.Tensor:
     replicated consumer."""
     axes = _live((ctx.tp,) if axes is None and ctx.tp else axes or (), ctx)
     return _ReduceOut.apply(x, axes, ctx) if axes else x
+
+
+SEQ_DIM = 1     # the sequence dim of (B, S, ...) activations
+
+
+def seq_enter(x: torch.Tensor, ctx: MeshContext, *, seq: bool,
+              split: bool) -> torch.Tensor:
+    """A layer's input ``x`` as its body reads it.  Under sequence
+    parallelism (``seq``: ``x`` is this rank's block of the sequence) the
+    blocks all-gathered along S: the backward reduce-scatters the gradient
+    where the body is partitioned over tp (``split``: each rank's gradient
+    a partial sum), else takes this rank's block of it (a replicated body
+    computes it whole).  Otherwise ``copy_in`` where the body is
+    partitioned, ``x`` itself where it is replicated."""
+    if seq and ctx.tp_size > 1:
+        return _Gather.apply(x, SEQ_DIM, (ctx.tp,),
+                             (ctx.tp,) if split else (), ctx)
+    return copy_in(x, ctx) if split else x
+
+
+def seq_leave(y: torch.Tensor, ctx: MeshContext, *, seq: bool,
+              split: bool) -> torch.Tensor:
+    """A layer's output ``y`` back on the residual stream: under ``seq``
+    the ranks' partial outputs reduce-scattered along S (``split``; the
+    backward all-gathers), or this rank's block of a replicated body's
+    whole output (the backward all-gathers, so the body's gradient is
+    whole on every rank); otherwise ``reduce_out`` where the body is
+    partitioned, ``y`` itself where it is replicated."""
+    if seq and ctx.tp_size > 1:
+        return (_ReduceScatter.apply(y, SEQ_DIM, ctx) if split
+                else seq_scatter(y, ctx))
+    return reduce_out(y, ctx) if split else y
+
+
+def seq_scatter(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """This rank's block along S of ``x``, complete on every tp rank (a
+    batch's frames, a VLM's prefixed embeddings), entering a sequence-
+    sharded stack; the backward all-gathers the gradient."""
+    return _Scatter.apply(x, SEQ_DIM, ctx) if ctx.tp_size > 1 else x
 
 
 def tp_slice(x: torch.Tensor, dim: int, ctx: MeshContext) -> torch.Tensor:
@@ -317,18 +398,19 @@ def dp_dense(op, x: torch.Tensor, w: torch.Tensor, ctx: MeshContext, *,
     return y.to(dt)
 
 
-def vocab_embed(w: torch.Tensor, tokens: torch.Tensor,
-                ctx: MeshContext) -> torch.Tensor:
+def vocab_embed(w: torch.Tensor, tokens: torch.Tensor, ctx: MeshContext,
+                seq: bool = False) -> torch.Tensor:
     """``w_full[tokens]`` from this rank's rows ``w`` of a table sharded
     over tp by rows: the rows this rank holds, zeros for the others, summed
-    over tp."""
+    over tp; under sequence parallelism (``seq``) reduce-scattered along S
+    to this rank's block of the sequence."""
     if ctx.tp_size == 1:
         return w[tokens]
     n = w.shape[0]
     local = tokens.long() - ctx.tp_rank * n
     hit = (local >= 0) & (local < n)
     rows = w[local.clamp(0, n - 1)] * hit[..., None].to(w.dtype)
-    return reduce_out(rows, ctx)
+    return seq_leave(rows, ctx, seq=seq, split=True)
 
 
 def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

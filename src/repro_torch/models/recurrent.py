@@ -21,7 +21,9 @@ state carry.
 Under a ``ShardingPolicy`` (training over a mesh) the params are laid out
 as ``param_specs`` says.  RG-LRU is diagonal in its R channels, so it runs
 channel-parallel over tp: column-parallel ``w_in``, the conv, gates and
-scan on this rank's channels, row-parallel ``w_out`` all-reduced.  SSD
+scan on this rank's channels, row-parallel ``w_out`` all-reduced (under
+sequence parallelism, ``policy.seq``: the input all-gathered and the
+output reduce-scattered along S, as every mixer of the port).  SSD
 runs head-parallel when its heads divide over tp: this rank's heads of
 ``w_z``, ``w_x``, ``w_dt`` and ``w_out``, the per-head vectors sliced to
 them, and the gated RMSNorm's sum of squares all-reduced over tp (it
@@ -175,8 +177,7 @@ def rglru(p: RGLRUParams, cfg: ModelConfig, x: torch.Tensor,
                 w_in=policy.gather_fsdp(p.w_in, P(None, policy.tp), sp.w_in),
                 w_out=policy.gather_fsdp(p.w_out, P(policy.tp, None),
                                          sp.w_out))
-            if split:
-                x = parallel.copy_in(x, ctx)
+            x = parallel.seq_enter(x, ctx, seq=policy.seq, split=split)
     if decode:
         u = parallel.dp_dense(in_proj, x, p.w_in, ctx, contract_dim=-1)
     else:
@@ -195,8 +196,8 @@ def rglru(p: RGLRUParams, cfg: ModelConfig, x: torch.Tensor,
                               out_dim=-1)
     else:
         y = out_proj(h.to(x.dtype), p.w_out)
-    if split:
-        y = parallel.reduce_out(y, policy.ctx)
+    if policy.enabled:
+        y = parallel.seq_leave(y, ctx, seq=policy.seq, split=split)
     return y, RGLRUState(h=h[:, -1], conv=conv_tail)
 
 
@@ -390,7 +391,6 @@ def ssd(p: SSDParams, cfg: ModelConfig, x: torch.Tensor,
         policy: ShardingPolicy = NO_SHARDING):
     """Mamba2 mixer.  x: (B,S,D) -> (B,S,D), new_state.  Under a policy,
     this rank's heads (module docstring)."""
-    B, S, D = x.shape
     H, P, N = ssd_dims(cfg)
     width, split, decode = H * P, False, False
     proj = lambda a, w: torch.einsum(  # noqa: E731
@@ -404,9 +404,10 @@ def ssd(p: SSDParams, cfg: ModelConfig, x: torch.Tensor,
                 proj, x, w, ctx, contract_dim=-1)
         else:
             p, split = _ssd_local(p, cfg, policy)
-            if split:
-                x = parallel.copy_in(x, policy.ctx)
+            x = parallel.seq_enter(x, policy.ctx, seq=policy.seq,
+                                   split=split)
         H = p.w_dt.shape[-1]
+    B, S, D = x.shape
     if decode:
         z, xh, Bm, Cm, dt = (dd(w) for w in (p.w_z, p.w_x, p.w_B, p.w_C,
                                               p.w_dt))
@@ -451,8 +452,9 @@ def ssd(p: SSDParams, cfg: ModelConfig, x: torch.Tensor,
         "bsi,id->bsd", a, w.to(a.dtype))
     out = (parallel.dp_dense(out_proj, y, p.w_out, policy.ctx, out_dim=-1)
            if decode else out_proj(y, p.w_out))
-    if split:
-        out = parallel.reduce_out(out, policy.ctx)
+    if policy.enabled:
+        out = parallel.seq_leave(out, policy.ctx, seq=policy.seq,
+                                 split=split)
     return out, SSDState(h=h_last)
 
 

@@ -21,7 +21,13 @@ embedding and the logits vocab-parallel over tp, attention and the MLP
 Megatron-style (column-parallel in, row-parallel out, all-reduced), each
 FSDP-sharded weight gathered over dp before its use
 (``models/parallel.py``), MoE layers expert-parallel over tp
-(``moe.moe_ffn_ep``).  ``forward`` with no autograd is the mesh prefill,
+(``moe.moe_ffn_ep``).  With the policy's ``sp`` (train and prefill, S a
+multiple of tp) the residual between layers is this rank's block of the
+sequence, (B, S / tp, D): each layer all-gathers it along S where it
+would copy it in and reduce-scatters its output along S where it would
+all-reduce it, the embedding reduce-scatters, and the loss's head
+gathers the final-normed blocks (``head_input``).  ``forward`` with no
+autograd is the mesh prefill,
 and ``lm_logits`` gives this rank's vocabulary block.  Decode over a mesh
 (a policy without ``weight_gather``) keeps the FSDP weights sharded and
 moves the batch rows instead (``parallel.dp_dense``), on this rank's shard
@@ -66,8 +72,10 @@ def mlp_specs(cfg: ModelConfig, policy: ShardingPolicy) -> MLPParams:
 def mlp(p: MLPParams, x: torch.Tensor, *,
         policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """SwiGLU.  Under a policy: column-parallel ``w_gate`` / ``w_up`` and
-    row-parallel ``w_down`` on this rank's slice of F, all-reduced (in
-    decode, on the FSDP shards: ``parallel.dp_dense``)."""
+    row-parallel ``w_down`` on this rank's slice of F, all-reduced, or
+    under sequence parallelism the input all-gathered and the output
+    reduce-scattered along S (in decode, on the FSDP shards:
+    ``parallel.dp_dense``)."""
     split = False
     if policy.enabled and not policy.weight_gather:
         ctx = policy.ctx
@@ -89,10 +97,11 @@ def mlp(p: MLPParams, x: torch.Tensor, *,
             w_up=policy.gather_fsdp(p.w_up, P(None, tf_), sp.w_up),
             w_down=policy.gather_fsdp(p.w_down, P(tf_, None), sp.w_down))
         split = tf_ is not None and policy.ctx.tp_size > 1
-        if split:
-            x = parallel.copy_in(x, policy.ctx)
+        x = parallel.seq_enter(x, policy.ctx, seq=policy.seq, split=split)
     y = dense(p.w_down, F.silu(dense(p.w_gate, x)) * dense(p.w_up, x))
-    return parallel.reduce_out(y, policy.ctx) if split else y
+    if policy.enabled:
+        y = parallel.seq_leave(y, policy.ctx, seq=policy.seq, split=split)
+    return y
 
 
 class LayerParams(NamedTuple):
@@ -139,8 +148,11 @@ def apply_layer(p: LayerParams, cfg: ModelConfig, spec: LayerSpec,
                 x: torch.Tensor, positions: torch.Tensor | None, state=None,
                 decode: bool = False, enc_kv=None, *,
                 policy: ShardingPolicy = NO_SHARDING):
-    """Pre-norm residual layer.  Returns (y, new_mixer_state)."""
-    h = rms_norm(p.norm1, x, cfg.norm_eps, cfg.rms_offset)
+    """Pre-norm residual layer.  Returns (y, new_mixer_state).  Under
+    sequence parallelism (``policy.seq``) ``x`` and ``y`` are this rank's
+    block of the sequence: the norms and the residual adds run on it."""
+    nw = policy.seq_weight
+    h = rms_norm(nw(p.norm1), x, cfg.norm_eps, cfg.rms_offset)
     new_state = None
     if spec.kind in ("global", "local"):
         window = spec.window if spec.kind == "local" else None
@@ -157,11 +169,11 @@ def apply_layer(p: LayerParams, cfg: ModelConfig, spec: LayerSpec,
         a, new_state = rec_lib.ssd(p.mixer, cfg, h, state, policy=policy)
     x = x + a
     if p.cross is not None and enc_kv is not None:
-        h = rms_norm(p.norm_c, x, cfg.norm_eps, cfg.rms_offset)
+        h = rms_norm(nw(p.norm_c), x, cfg.norm_eps, cfg.rms_offset)
         x = x + attn_lib.cross_attention(p.cross, cfg, h, enc_kv,
                                          policy=policy)
     if p.ffn is not None:
-        h = rms_norm(p.norm2, x, cfg.norm_eps, cfg.rms_offset)
+        h = rms_norm(nw(p.norm2), x, cfg.norm_eps, cfg.rms_offset)
         x = x + (moe_lib.moe_ffn(p.ffn, cfg, h, policy=policy) if cfg.is_moe
                  else mlp(p.ffn, h, policy=policy))
     return x, new_state
@@ -324,8 +336,9 @@ def _scan_blocks(params: ModelParams, cfg: ModelConfig, x: torch.Tensor,
 def embed_tokens(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor,
                  *, policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """``embed[tokens] * sqrt(D)``; under a policy the table's rows are
-    sharded over tp (``parallel.vocab_embed``), and in decode its FSDP
-    columns stay sharded (``parallel.dp_dense``)."""
+    sharded over tp (``parallel.vocab_embed``; under sequence parallelism
+    the result is this rank's block of the sequence), and in decode its
+    FSDP columns stay sharded (``parallel.dp_dense``)."""
     if policy.enabled and not policy.weight_gather:
         ctx = policy.ctx
         x = parallel.dp_dense(lambda t, w: parallel.vocab_embed(w, t, ctx),
@@ -334,17 +347,22 @@ def embed_tokens(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor,
     elif policy.enabled:
         w = policy.gather_fsdp(params.embed, P(policy.tp, None),
                                policy.p_embed())
-        x = parallel.vocab_embed(w, tokens, policy.ctx).to(cfg.dtype)
+        x = parallel.vocab_embed(w, tokens, policy.ctx,
+                                 seq=policy.seq).to(cfg.dtype)
     else:
         x = params.embed[tokens].to(cfg.dtype)
     return x * scalar(x, cfg.d_model ** 0.5)
 
 
 def lm_logits(params: ModelParams, cfg: ModelConfig, x: torch.Tensor, *,
-              policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
+              policy: ShardingPolicy = NO_SHARDING,
+              normed: bool = False) -> torch.Tensor:
     """The (B, S, V) logits, the padded slots -1e9; under a policy, this
-    rank's block of the vocabulary (tp-sharded, in tp-rank order)."""
-    x = rms_norm(params.final_norm, x, cfg.norm_eps, cfg.rms_offset)
+    rank's block of the vocabulary (tp-sharded, in tp-rank order).
+    ``normed``: ``x`` is ``head_input``'s, final-normed and gathered along
+    S already (its backward sums the partial gradient: no ``copy_in``)."""
+    if not normed:
+        x = rms_norm(params.final_norm, x, cfg.norm_eps, cfg.rms_offset)
     vp = padded_vocab(cfg.vocab_size)
     lo = 0
     if policy.enabled:
@@ -362,7 +380,8 @@ def lm_logits(params: ModelParams, cfg: ModelConfig, x: torch.Tensor, *,
             else:
                 w = policy.gather_fsdp(params.unembed, P(None, tv),
                                        policy.p_embed())
-            x = parallel.copy_in(x, policy.ctx)
+            if not normed:
+                x = parallel.copy_in(x, policy.ctx)
             logits = _logits(x, w)
     else:
         logits = _logits(x, params.embed.T if params.unembed is None
@@ -373,6 +392,18 @@ def lm_logits(params: ModelParams, cfg: ModelConfig, x: torch.Tensor, *,
                              device=x.device) < cfg.vocab_size
         logits = torch.where(valid, logits, scalar(logits, -1e9))
     return logits
+
+
+def head_input(params: ModelParams, cfg: ModelConfig, h: torch.Tensor,
+               policy: ShardingPolicy) -> torch.Tensor:
+    """``lm_logits``' input from ``h``, this rank's block of a
+    sequence-sharded stack's output (``policy.seq``): the final norm on the
+    block, then all-gathered along S in place of the head's ``copy_in``
+    (the backward reduce-scatters the vocabulary-parallel head's partial
+    gradient).  Pass the result with ``normed=True``."""
+    x = rms_norm(policy.seq_weight(params.final_norm), h, cfg.norm_eps,
+                 cfg.rms_offset)
+    return parallel.seq_enter(x, policy.ctx, seq=True, split=True)
 
 
 def _logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -404,39 +435,59 @@ def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor,
             encoder_out: torch.Tensor | None = None, *,
             policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """tokens (B, S) -> final hidden (B, S, D).  ``extra_embeds`` is the VLM
-    patch-embedding prefix (stubbed frontend)."""
-    x = embed_tokens(params, cfg, tokens, policy=policy)
+    patch-embedding prefix (stubbed frontend).  Under sequence parallelism
+    (``policy.with_sequence(S).seq`` for the S positions with the prefix)
+    the residual is this rank's block of the sequence from the embedding
+    on, and so is the result: (B, S / tp, D)."""
+    B = tokens.shape[0]
+    S = tokens.shape[1] + (0 if extra_embeds is None
+                           else extra_embeds.shape[1])
+    pol = policy.with_sequence(S)
+    x = embed_tokens(params, cfg, tokens,
+                     policy=pol if extra_embeds is None else policy)
     if extra_embeds is not None:
         pfx = extra_embeds.to(cfg.dtype)
         if params.enc_proj is not None:
             pfx = dense(params.enc_proj, pfx)
         x = torch.cat([pfx, x], dim=1)
-    B, S, _ = x.shape
+        if pol.seq:
+            x = parallel.seq_scatter(x, pol.ctx)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     return _scan_blocks(params, cfg, x, positions, enc=encoder_out,
-                        policy=policy)
+                        policy=pol)
 
 
 def encode(params: ModelParams, cfg: ModelConfig, frames: torch.Tensor, *,
            policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
     """Whisper encoder over stubbed conv-frontend frame embeddings (B,F,D);
-    its layers are non-causal."""
+    its layers are non-causal.  Under sequence parallelism (the frames
+    dividing over tp) its residual is this rank's block of the frames, and
+    the normed output is all-gathered once, so that the decoder's cross
+    attention reads it whole (the backward takes this rank's block)."""
     enc_blocks, enc_norm = params.encoder
     x = frames.to(cfg.dtype)
     B, S, _ = x.shape
+    pol = policy.with_sequence(S)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    if pol.seq:
+        x = parallel.seq_scatter(x, pol.ctx)
     for lp in tree_unstack(enc_blocks, cfg.encoder_layers):
-        x = remat(_encoder_layer, x, lp, cfg, positions, policy)
-    return rms_norm(enc_norm, x, cfg.norm_eps, cfg.rms_offset)
+        x = remat(_encoder_layer, x, lp, cfg, positions, pol)
+    x = rms_norm(pol.seq_weight(enc_norm), x, cfg.norm_eps, cfg.rms_offset)
+    if pol.seq:
+        x = parallel.seq_enter(x, pol.ctx, seq=True, split=False)
+    return x
 
 
 def _encoder_layer(x: torch.Tensor, lp: LayerParams, cfg: ModelConfig,
                    positions: torch.Tensor,
                    policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
-    h = rms_norm(lp.norm1, x, cfg.norm_eps, cfg.rms_offset)
+    h = rms_norm(policy.seq_weight(lp.norm1), x, cfg.norm_eps,
+                 cfg.rms_offset)
     x = x + attn_lib.attention(lp.mixer, cfg, h, positions, window=None,
                                causal=False, policy=policy)
-    h = rms_norm(lp.norm2, x, cfg.norm_eps, cfg.rms_offset)
+    h = rms_norm(policy.seq_weight(lp.norm2), x, cfg.norm_eps,
+                 cfg.rms_offset)
     return x + mlp(lp.ffn, h, policy=policy)

@@ -54,15 +54,17 @@ LOSS_SEQ_CHUNK = 1024  # CE evaluated in seq chunks to bound logits memory
 # ---------------------------------------------------------------------------
 
 def _ce_chunk(params: tf.ModelParams, cfg: ModelConfig, h: torch.Tensor,
-              labels: torch.Tensor,
-              policy: ShardingPolicy = NO_SHARDING) -> torch.Tensor:
+              labels: torch.Tensor, policy: ShardingPolicy = NO_SHARDING,
+              normed: bool = False) -> torch.Tensor:
     """Per-token CE of one chunk.  The reference extracts the gold logit
     with a one-hot contraction for GSPMD's vocab sharding; on one device a
     gather gives the same value bit for bit (every other term of the
     one-hot sum is an exact 0) and the same gradient, without a (B, C, V)
     float32 one-hot.  Under a policy the logits are this rank's vocabulary
-    block (``parallel.vocab_cross_entropy``)."""
-    logits = tf.lm_logits(params, cfg, h, policy=policy).float()
+    block (``parallel.vocab_cross_entropy``); ``normed``: ``h`` is
+    ``tf.head_input``'s."""
+    logits = tf.lm_logits(params, cfg, h, policy=policy,
+                          normed=normed).float()
     if policy.enabled:
         return parallel.vocab_cross_entropy(logits, labels, policy.ctx)
     m = logits.max(dim=-1, keepdim=True).values.detach()
@@ -78,13 +80,19 @@ def loss_fn(params: tf.ModelParams, cfg: ModelConfig, batch: dict, *,
     shards (its rows of the global batch over the dp axes) and the value is
     the global mean on every rank: this rank's mean over its rows / |dp|,
     summed over dp (the backward of the sum is the identity, so each rank
-    differentiates its own share)."""
+    differentiates its own share).  Under sequence parallelism the
+    forward's result is this rank's block of the sequence; the blocks are
+    final-normed and gathered once (``tf.head_input``) before the chunks
+    of the head."""
     enc = None
     if cfg.encoder_layers:
         enc = tf.encode(params, cfg, batch["frames"], policy=policy)
     patches = batch.get("patches")
     h = tf.forward(params, cfg, batch["tokens"], extra_embeds=patches,
                    encoder_out=enc, policy=policy)
+    pol = policy.with_sequence(_positions(batch))
+    if pol.seq:     # the norm's float32 temporaries recomputed, not held
+        h = remat(tf.head_input, params, cfg, h, pol)
     labels = batch["labels"]
     if patches is not None:
         h = h[:, patches.shape[1]:]     # loss on text positions only
@@ -93,12 +101,21 @@ def loss_fn(params: tf.ModelParams, cfg: ModelConfig, batch: dict, *,
     if S % C:
         C = S
     per_chunk = [remat(_ce_chunk, params, cfg, h[:, i:i + C],
-                       labels[:, i:i + C], policy) for i in range(0, S, C)]
+                       labels[:, i:i + C], policy, pol.seq)
+                 for i in range(0, S, C)]
     loss = torch.stack(per_chunk).mean()
     if policy.enabled and policy.ctx.dp_size > 1:
         loss = parallel.reduce_out(loss / policy.ctx.dp_size, policy.ctx,
                                    axes=policy.dp)
     return loss
+
+
+def _positions(batch: dict) -> int:
+    """The positions ``tf.forward`` runs over: the tokens and any VLM
+    prefix."""
+    patches = batch.get("patches")
+    return batch["tokens"].shape[1] + (0 if patches is None
+                                       else patches.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -407,8 +424,9 @@ def make_prefill_step(cfg: ModelConfig,
     """Full-sequence forward; returns last-position logits (no autograd
     graph).  ``batch``: dict(tokens[, frames, patches]).  Under a policy
     (``launch.specs.make_policy(mesh, B, "prefill")``): this rank's shards
-    of the params and its rows of the batch; the logits are its rows and
-    vocabulary block.  The FSDP weights are gathered before their use
+    of the params and its rows of the batch (its block of the sequence
+    between layers, under sequence parallelism); the logits are its rows
+    and vocabulary block.  The FSDP weights are gathered before their use
     whatever the policy's ``weight_gather``."""
     if policy.enabled and not policy.weight_gather:
         policy = dataclasses.replace(policy, weight_gather=True)
@@ -421,6 +439,10 @@ def make_prefill_step(cfg: ModelConfig,
         h = tf.forward(params, cfg, batch["tokens"],
                        extra_embeds=batch.get("patches"), encoder_out=enc,
                        policy=policy)
+        if policy.with_sequence(_positions(batch)).seq:
+            # each rank holds a block of the sequence: the last rank's
+            # last position is the sequence's
+            h = parallel.tp_gather(h[:, -1:], 1, policy.ctx)
         return tf.lm_logits(params, cfg, h[:, -1:], policy=policy)
 
     return prefill_step
