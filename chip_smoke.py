@@ -208,6 +208,20 @@ from ``launch/specs.make_policy``, tensor parallelism and ZeRO-3 through
     a step, tokens/s, the bytes bound, the peak, one profiled step's busy
     share and NCCL time, and the collective bytes a step.
 
+A recurrent arch at full width (no kernel of the port's own):
+
+27. mamba2-130m at its published widths on one card, weights drawn on the
+    card from a seed (bf16 params, float32 AdamW): ``lm_train_timed`` at
+    B = 8, S = 4096 on ``lm_batches`` (2 warm-up steps, 8 between CUDA
+    events: ms a step, tokens/s, ``mfu`` of the reference's count, peak
+    bytes, the losses); the weights drawn again, cast to float32 (TF32
+    off), a 64-token prompt decoded token by token against its prefill;
+    a 4,096-token bf16 prefill at B = 1 (3 calls timed); 64 greedy bf16
+    decode steps at B = 32 from a stand-in state (ms a step beside the
+    bound of the weights read once and the state read and written).
+    ``python3 kernel_probe.py --lm-ssd-four`` runs it, then the SSD over
+    four cards.
+
 Model FLOPs (``mfu``): phases 23 and 25 count ``qwen_train_flops``: 6 N T
 over the 4,026,727,936 parameter tensors (norms included) plus the
 attention's score and PV products as executed (every key of each query
@@ -286,7 +300,11 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
   planted fault beyond it (qwen3-4b on (1, 4), layout (a): one tp rank's
   attention output left out of ``wo``'s all-reduce; gemma2-27b on (2, 2),
   layout (c): one slot shard's partial sums left out of the softmax's
-  combine).
+  combine);
+* mamba2-130m: every loss and grad norm finite, the least of the last
+  three losses below the first, the float32 decode == prefill within
+  1e-3 of scale, the bf16 decode's logits finite and the position
+  advanced.
 
 Fails (non-zero exit, no result line) without a CUDA card, outside a
 checkout of the repository, or when any phase fails.
@@ -387,6 +405,14 @@ SERVE_ACT_SHARE = 0.1          # a decode step's collective bytes over the
                                # card's weight bytes (gathering each
                                # weight once would make it >= 1)
 SERVE_TIMEOUT_S = 180          # a rank stuck this long fails the phase
+
+# mamba2-130m at full width on one card (phase 27)
+MAMBA_ARCH = "mamba2-130m"
+MAMBA_TRAIN_B, MAMBA_TRAIN_S = 8, 4096
+MAMBA_WARM, MAMBA_TIMED = 2, 8
+MAMBA_PROMPT = 64              # float32 decode vs prefill, TF32 off
+MAMBA_PREFILL_S, MAMBA_PREFILL_CALLS = 4096, 3
+MAMBA_DECODE_B, MAMBA_DECODE_STEPS = 32, 64
 
 BATCH, BUCKETS, SWEEPS = 32, (32, 64, 128, 256), (8, 4)
 SERVE_DOCS, SWAP_DOCS = 256, 32
@@ -1591,7 +1617,8 @@ def qwen_train_flops(cfg, n_params: int, tokens: int, seq: int) -> float:
     against all ``seq`` keys: the reference's recipe does not skip masked
     blocks), forward and backward (3x the forward).  The recomputation of
     the blocks and CE chunks in the backward is not counted."""
-    attn_fwd = 4 * tokens * seq * cfg.num_heads * cfg.hd * cfg.num_layers
+    attn_fwd = (4 * tokens * seq * cfg.num_heads * cfg.hd * cfg.num_layers
+                if cfg.num_heads else 0)          # attention-free (mamba2)
     return 6 * n_params * tokens + 3 * attn_fwd
 
 
@@ -2150,6 +2177,166 @@ def lm_mesh_four(card: str, one_card_losses: list | None,
             raise AssertionError(f"{where}: losses {lead['losses']} against "
                                  f"one card's {one_card_losses}")
     return out
+
+
+def lm_train_timed(cfg, B: int, S: int, warm: int, timed: int, dev,
+                   seed: int = SEED, micro_batches: int = 1) -> dict:
+    """One-device training of ``cfg`` on ``dev`` from weights drawn from
+    ``seed`` (params of the config's dtype, float32 AdamW state) on
+    ``lm_batches(vocab, B, S)``: ``warm`` steps, then ``timed`` steps
+    between CUDA events; ms a step, tokens/s, the reference's model FLOPs
+    (``roofline.step_flops``: 6 N T, N the active parameters without
+    norms, plus the attention's causal half) over 989 TFLOP/s (``mfu``),
+    the peak bytes and every step's loss and grad norm (``micro_batches``:
+    each step's gradient summed over that many micro-batches).
+    Everything is freed at the end."""
+    import torch
+
+    from repro_torch.data.loader import PrefetchLoader, lm_batches
+    from repro_torch.launch import roofline
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import zoo
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        seed))
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    state = zoo.TrainState(params, adamw.init(params))
+    step = zoo.make_train_step(cfg, micro_batches=micro_batches)
+    loader = PrefetchLoader(lm_batches(cfg.vocab_size, B, S, seed=seed),
+                            device=dev)
+    losses, norms = [], []
+    try:
+        for _ in range(warm):
+            state, m = step(state, next(loader))
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(timed):
+            state, m = step(state, next(loader))
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        b.record()
+        b.synchronize()
+    finally:
+        loader.close()
+    ms = a.elapsed_time(b) / timed
+    flops = roofline.step_flops(cfg, "train", B, S)
+    out = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               params=n_params, batch=B, seq=S, steps_timed=timed,
+               ms_per_step=ms, tokens_per_s=B * S / ms * 1e3,
+               reference_model_flops=flops,
+               mfu_reference_count=flops / (ms / 1e3) / BF16_FLOPS,
+               peak_bytes=torch.cuda.max_memory_allocated(dev),
+               losses=[float(x) for x in losses],
+               grad_norms=[float(x) for x in norms])
+    del params, state, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def mamba_phase(card: str, dev="cuda:0") -> list:
+    """Phase 27: mamba2-130m at full width on the card (see the module
+    docstring); everything is freed at the end.  Returns the training
+    losses, in the order of the batches."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.launch import roofline
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import zoo
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS[MAMBA_ARCH]
+    dev = torch.device(dev)
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    train = lm_train_timed(cfg, MAMBA_TRAIN_B, MAMBA_TRAIN_S, MAMBA_WARM,
+                           MAMBA_TIMED, dev)
+    train_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = tf.init_params(cfg, gen)
+    w_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+    # float32 (TF32 off): a prompt decoded token by token == its prefill
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    prompt = torch.randint(0, V, (2, MAMBA_PROMPT), generator=gen,
+                           device=dev)
+    f32_rel = decode_vs_prefill(c32, tree_map(lambda a: a.float(), params),
+                                prompt, dev, 2 * MAMBA_PROMPT)
+    torch.cuda.empty_cache()
+    # a prefill of MAMBA_PREFILL_S tokens at B = 1
+    prefill = zoo.make_prefill_step(cfg)
+    toks = torch.randint(0, V, (1, MAMBA_PREFILL_S), generator=gen,
+                         device=dev)
+    pre = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(MAMBA_PREFILL_CALLS):
+        pre = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t1) / MAMBA_PREFILL_CALLS * 1e3
+    pre_flops = roofline.step_flops(cfg, "prefill", 1, MAMBA_PREFILL_S)
+    # greedy bf16 decode at MAMBA_DECODE_B from a stand-in state
+    B = MAMBA_DECODE_B
+    step = zoo.make_decode_step(cfg)
+    st = zoo.init_decode_state(cfg, B, MAMBA_PROMPT, generator=gen)
+    h_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(st)
+                  if a.is_floating_point())
+    tok = torch.randint(0, V, (B, 1), generator=gen, device=dev)
+    for _ in range(2):                                       # warm-up
+        logits, st = step(params, st, tok)
+        tok = logits[..., :V].argmax(-1)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(MAMBA_DECODE_STEPS):
+        logits, st = step(params, st, tok)
+        tok = logits[..., :V].argmax(-1)
+    b.record()
+    b.synchronize()
+    dec_ms = a.elapsed_time(b) / MAMBA_DECODE_STEPS
+    losses = train["losses"]
+    decode = dict(batch=B, steps=MAMBA_DECODE_STEPS, ms_per_step=dec_ms,
+                  tokens_per_s=B / dec_ms * 1e3, weight_bytes=w_bytes,
+                  state_bytes=h_bytes,
+                  # the weights read once, the state read and written
+                  bound_ms=(w_bytes + 2 * h_bytes) / HBM_BYTES_PER_S * 1e3,
+                  position=int(st.position),
+                  finite=bool(torch.isfinite(logits.float()).all()))
+    emit("lm_mamba2_130m", card=card, train=train, train_s=train_s,
+         f32_decode_vs_prefill_rel_err=f32_rel, f32_prompt=MAMBA_PROMPT,
+         prefill=dict(batch=1, S=MAMBA_PREFILL_S, ms=pre_ms,
+                      tokens_per_s=MAMBA_PREFILL_S / pre_ms * 1e3,
+                      reference_model_flops=pre_flops,
+                      bound_ms=pre_flops / BF16_FLOPS * 1e3,
+                      finite=bool(torch.isfinite(pre.float()).all())),
+         decode=decode, serve_peak_bytes=torch.cuda.max_memory_allocated(dev),
+         seconds=time.perf_counter() - t0)
+    del params, st, logits, pre, prompt, toks
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses + train["grad_norms"]):
+        raise AssertionError(f"{MAMBA_ARCH} training: non-finite {losses}")
+    if not min(losses[-3:]) < losses[0]:
+        raise AssertionError(f"{MAMBA_ARCH}: the loss did not fall: "
+                             f"{losses}")
+    if f32_rel > QWEN_F32_REL:
+        raise AssertionError(f"{MAMBA_ARCH} float32 decode vs prefill "
+                             f"{f32_rel}")
+    if not (decode["finite"] and decode["position"] == 2 +
+            MAMBA_DECODE_STEPS):
+        raise AssertionError(f"{MAMBA_ARCH} decode: {decode}")
+    return losses
 
 
 def lm_serve_mesh_phase(card: str, dev="cuda:0") -> list | None:
@@ -3317,6 +3504,9 @@ def main() -> int:
 
     # -- 26. the LM zoo's serving over a mesh --------------------------------
     lm_serve_mesh_phase(card)
+
+    # -- 27. a recurrent arch at full width ----------------------------------
+    mamba_phase(card)
     print(json.dumps({"kernels": [k3_row] + train_rows}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(card, flush=True)

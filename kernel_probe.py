@@ -31,6 +31,14 @@ and the phi-rebuild kernel K4 (``phi_update.cu``) and the fold-in kernel K3
                                                 # (1, 4) and gemma2-27b's
                                                 # long_500k on (2, 2), each
                                                 # gated against one card
+    python3 kernel_probe.py --lm-ssd-four       # phase 27, then the SSD
+                                                # over four cards: the
+                                                # N-sharded state layout
+                                                # gated against one card
+                                                # (float32) with a planted
+                                                # fault, mamba2-130m on
+                                                # (1, 4), the stand-in in
+                                                # bf16 against one card
 
 Each source is built several ways with ``-D``, one ``nvcc`` each, all
 started together:
@@ -715,8 +723,375 @@ def lm_serve_four_probe() -> int:
     return 0
 
 
+# The SSD's state layout on four cards: mamba2-130m's P = 64, N = 128 and
+# chunk 64 at d_model = 800 (2 layers), so H = 25 does not divide over 4
+# while H * P = 1,600 and N do
+SSD_STAND_IN = dict(d_model=800, num_layers=2)
+SSD_GATE_B, SSD_GATE_S, SSD_GATE_STEPS = 2, 512, 8
+SSD_LOSS_REL, SSD_GRAD_REL, SSD_OUT_REL = 1e-5, 1e-4, 1e-5
+SSD_STATE_ATOL = 1e-6
+SSD_BF16_B = 8                 # the bf16 stand-in's batch, S = 4096
+SSD_DECODE_B, SSD_DECODE_STEPS = 32, 64   # mamba2-130m's decode on (1, 4)
+
+
+def ssd_stand_in(dtype):
+    import dataclasses
+
+    from repro_torch.configs.archs import ARCHS
+
+    return dataclasses.replace(ARCHS[cs.MAMBA_ARCH], dtype=dtype,
+                               **SSD_STAND_IN)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|, in float64 on the host."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def ssd_state_gate(dev, planted: bool, cfg=None) -> dict | None:
+    """One rank of the SSD's state-layout gate on a (1, 4) mesh, float32
+    with TF32 off: every rank draws the stand-in's weights, a batch of
+    ``lm_batches`` and a stand-in decode state from the seed on ``dev``
+    and keeps its shards; the mesh's ``loss_and_grads``, then (but for
+    ``planted``) a prefill's logits, the first layer's mixer on this
+    rank's block of a random input (its output and ``h_last``, the
+    decode state's N shard), SSD_GATE_STEPS decode steps on the N-sharded
+    state and one ``train_step``, each gathered.  Rank 0 runs each on the
+    whole model and returns the differences (None on the other ranks).
+    ``planted``: ``dt_bias`` read by each rank's share of the core without
+    ``copy_in``, so its gradient stays that rank's share."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.loader import lm_batches
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import make_policy
+    from repro_torch.models import convert, parallel, zoo
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import P
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or ssd_stand_in(torch.float32)
+    mesh = make_production_mesh(4)
+    lead = dist.get_rank() == 0
+    B, S, V = SSD_GATE_B, SSD_GATE_S, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    whole = tf.init_params(cfg, gen)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             lm_batches(V, B, S, seed=cs.SEED)(0).items()}
+    pol = make_policy(mesh, B)
+    specs = tf.param_specs(cfg, pol)
+    coord, size = parallel.mesh_coords(mesh, dist.get_rank())
+    shard = lambda tree, sp: parallel.shard_tree(  # noqa: E731
+        tree, sp, coord, size)
+    local = shard(whole, specs)
+    rows = parallel.dp_rows(batch, pol.ctx)
+    plan = rec.ssd_plan(cfg, pol)
+    out = dict(planted=planted, layout=plan.layout, chan=plan.chan)
+    real = rec._ssd_local
+    if planted:
+        rec._ssd_local = lambda p, *a: real(p, *a)._replace(
+            dt_bias=p.dt_bias)
+    try:
+        loss, grads = zoo.loss_and_grads(local, cfg, rows, policy=pol)
+    finally:
+        rec._ssd_local = real
+    grads = convert.flatten(parallel.gather_tree(grads, specs, pol.ctx))
+    if lead:
+        ref_loss, ref_grads = zoo.loss_and_grads(whole, cfg, batch)
+        errs = {k: _rel(grads[k], g)
+                for k, g in convert.flatten(ref_grads).items()}
+        out.update(loss=float(loss), ref_loss=float(ref_loss),
+                   loss_rel_err=abs(float(loss) - float(ref_loss))
+                   / abs(float(ref_loss)),
+                   grad_rel_err=max(errs.values()),
+                   dt_bias_grad_rel_err=max(
+                       v for k, v in errs.items() if k.endswith("dt_bias")),
+                   grad_rel_err_but_dt_bias=max(
+                       v for k, v in errs.items()
+                       if not k.endswith("dt_bias")))
+    if planted:
+        return out if lead else None
+    # a prefill, and the first layer's mixer on this rank's block
+    pre = make_policy(mesh, B, "prefill")
+    params = shard(whole, tf.param_specs(cfg, pre))
+    logits = parallel.gather_full(
+        zoo.make_prefill_step(cfg, policy=pre)(
+            params, parallel.dp_rows({"tokens": batch["tokens"]}, pre.ctx)),
+        P(pre.batch(), None, pre.tp), pre.ctx)
+    lay = pre.with_sequence(S)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    x_loc = parallel.dp_rows({"x": x}, pre.ctx)["x"]
+    if lay.seq:
+        x_loc = parallel.tp_slice(x_loc, 1, lay.ctx)
+    with torch.no_grad():
+        y, st = rec.ssd(tf.block(params.blocks[0], 0).mixer, cfg, x_loc,
+                        policy=lay)
+    if lay.seq:
+        y = parallel.tp_gather(y, 1, lay.ctx)
+    y = parallel.gather_full(y, P(lay.batch(), None, None), lay.ctx)
+    h_shape = list(st.h.shape)
+    h = parallel.gather_full(st.h, rec.ssd_state_spec(cfg, lay).h, lay.ctx)
+    # decode on the N-sharded state
+    dec = make_policy(mesh, B, "decode")
+    d_specs = zoo.serving_state_specs(cfg, dec)
+    params = shard(whole, tf.param_specs(cfg, dec))
+    seed = lambda: torch.Generator(device=dev).manual_seed(  # noqa: E731
+        cs.SEED + 1)
+    state = zoo.init_decode_state(cfg, B, SSD_GATE_STEPS, generator=seed(),
+                                  dtype=torch.float32, policy=dec)
+    state_shape = list(state.layer_states[0].h.shape)
+    toks = torch.randint(0, V, (B, SSD_GATE_STEPS), generator=gen,
+                         device=dev)
+    step = zoo.make_decode_step(cfg, policy=dec)
+    dec_logits = []
+    for i in range(SSD_GATE_STEPS):
+        lg, state = step(params, state, parallel.dp_rows(
+            {"t": toks[:, i:i + 1]}, dec.ctx)["t"])
+        dec_logits.append(parallel.gather_full(
+            lg, P(dec.batch(), None, dec.tp), dec.ctx))
+    dec_state = convert.flatten(convert.gather_decode_state(
+        state, d_specs, mesh))
+    # one train step (the params updated in place: the mesh's first)
+    tstate = zoo.TrainState(local, adamw.init(local))
+    tstate, m = zoo.make_train_step(cfg, policy=pol)(tstate, rows)
+    got = convert.flatten(convert.gather_train_state(tstate, specs, mesh))
+    if not lead:
+        return None
+    with torch.no_grad():
+        ry, rst = rec.ssd(tf.block(whole.blocks[0], 0).mixer, cfg, x)
+    ref_pre = zoo.make_prefill_step(cfg)(whole, {"tokens": batch["tokens"]})
+    rstate = zoo.init_decode_state(cfg, B, SSD_GATE_STEPS, generator=seed(),
+                                   dtype=torch.float32)
+    rstep = zoo.make_decode_step(cfg)
+    ref_logits = []
+    for i in range(SSD_GATE_STEPS):
+        lg, rstate = rstep(whole, rstate, toks[:, i:i + 1])
+        ref_logits.append(lg)
+    ref_state = convert.flatten(rstate)
+    rts, rm = zoo.make_train_step(cfg)(
+        zoo.TrainState(whole, adamw.init(whole)), batch)
+    bound = 2 * cs.lr_at(1) + SSD_STATE_ATOL
+    want = convert.flatten(rts)
+    out.update(
+        prefill_rel_err=_rel(logits[..., :V], ref_pre[..., :V]),
+        mixer_y_rel_err=_rel(y, ry), mixer_h_rel_err=_rel(h, rst.h),
+        mixer_h_shape=h_shape, decode_h_shape=state_shape,
+        whole_h_shape=list(rst.h.shape),
+        decode_logits_rel_err=max(_rel(a[..., :V], b[..., :V]) for a, b in
+                                  zip(dec_logits, ref_logits)),
+        decode_state_rel_err=max(_rel(dec_state[k], v)
+                                 for k, v in ref_state.items()
+                                 if v.is_floating_point()),
+        decode_position=int(dec_state["position"]),
+        step_loss_rel_err=abs(float(m["loss"]) - float(rm["loss"]))
+        / abs(float(rm["loss"])),
+        step_grad_norm_rel_err=abs(float(m["grad_norm"])
+                                   - float(rm["grad_norm"]))
+        / float(rm["grad_norm"]),
+        step_state_max_abs_err=max(float((got[k].double() - v.double())
+                                         .abs().max().cpu())
+                                   for k, v in want.items()),
+        step_state_bound=bound)
+    return out
+
+
+def ssd_gate_passed(g: dict) -> bool:
+    """The float32 bounds of the state-layout gate (its clean run)."""
+    return (g["layout"] == "state" and g["loss_rel_err"] <= SSD_LOSS_REL
+            and g["grad_rel_err"] <= SSD_GRAD_REL
+            and max(g[k] for k in ("prefill_rel_err", "mixer_y_rel_err",
+                                   "mixer_h_rel_err",
+                                   "decode_logits_rel_err",
+                                   "decode_state_rel_err")) <= SSD_OUT_REL
+            and g["step_loss_rel_err"] <= SSD_LOSS_REL
+            and g["step_grad_norm_rel_err"] <= SSD_GRAD_REL
+            and g["step_state_max_abs_err"] <= g["step_state_bound"])
+
+
+def _ssd_four_rank(rank: int, out_dir: str) -> None:
+    """One of ``lm_ssd_four_probe``'s NCCL ranks on card ``rank``: the
+    state-layout gate clean and planted (``ssd_state_gate``); mamba2-130m
+    at full width on (1, 4), the heads layout: MESH_LM_STEPS train steps
+    at B = MAMBA_TRAIN_B, S = 4096 (``qwen_mesh_steps``) in bf16, then in
+    float32 (TF32 off), then SSD_DECODE_STEPS bf16 decode steps at B =
+    SSD_DECODE_B (``serve_run``); the stand-in in bf16, MESH_LM_STEPS
+    train steps at B = SSD_BF16_B.  Rank 0 profiles the bf16 trainings'
+    last steps.  Each part's row is written to ``out_dir`` as it ends."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import make_policy
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.empty(1, device=dev)         # memory stats need the allocator
+
+    def write(name, row):
+        if row is not None:
+            row["device"] = torch.cuda.get_device_name(dev)
+            Path(out_dir, f"{name}{rank}.json").write_text(json.dumps(row))
+
+    for planted in (False, True):
+        write(f"gate_{'planted' if planted else 'clean'}",
+              ssd_state_gate(dev, planted))
+    torch.cuda.empty_cache()
+    mesh = make_production_mesh(4)
+    mamba = ARCHS[cs.MAMBA_ARCH]
+    write("heads", cs.qwen_mesh_steps(mesh, cs.MAMBA_TRAIN_B,
+                                      cs.MESH_LM_STEPS, dev,
+                                      profiled=rank == 0, cfg=mamba))
+    write("heads_f32", cs.qwen_mesh_steps(
+        mesh, cs.MAMBA_TRAIN_B, cs.MESH_LM_STEPS, dev,
+        cfg=dataclasses.replace(mamba, dtype=torch.float32)))
+    pol = make_policy(mesh, SSD_DECODE_B, "decode")
+    params = tf.init_params(mamba, torch.Generator(device=dev).manual_seed(
+        cs.SEED), policy=pol)
+    row = cs.serve_run(mamba, params, mesh, SSD_DECODE_B, 2,
+                       SSD_DECODE_STEPS, dev)
+    # serve_run's bound counts KV caches; this model holds SSD states,
+    # its rank's heads of them read and written each step
+    H, Pd, N = rec.ssd_dims(mamba)
+    h_bytes = (mamba.num_layers * SSD_DECODE_B * H * Pd * N * 4
+               // pol.ctx.tp_size)
+    row.update(layout=rec.ssd_layout(mamba, pol), ssd_state_bytes=h_bytes,
+               bound_ms=(row["weight_bytes"] + 2 * h_bytes)
+               / cs.HBM_BYTES_PER_S * 1e3)
+    write("decode", row)
+    del params
+    torch.cuda.empty_cache()
+    write("bf16", cs.qwen_mesh_steps(mesh, SSD_BF16_B, cs.MESH_LM_STEPS, dev,
+                                     profiled=rank == 0,
+                                     cfg=ssd_stand_in(torch.bfloat16)))
+
+
+def lm_ssd_four_probe() -> int:
+    """Phase 27 on cuda:0 (mamba2-130m at full width on one card), the
+    same model's first MESH_LM_STEPS steps in float32 (TF32 off) and the
+    bf16 stand-in's one-card steps, then one spawn of 4 NCCL ranks
+    (``_ssd_four_rank``).  Gates: the state layout within its float32
+    bounds of one card and its planted fault beyond them (the ``dt_bias``
+    gradient); mamba2-130m's float32 (1, 4) first loss (the same weights
+    and batch) within MESH_FOUR_LOSS_REL of one card's.  The later steps'
+    losses are reported, not gated: at this model's full width a float32
+    trajectory moves by more than the bound under any other summation
+    order, which the control shows (one card's float32 steps with each
+    gradient summed over two micro-batches, against one); and bf16's
+    rounding alone moves its loss by more (one card's bf16 first loss
+    against its float32 one, reported).  Exits 0 only when every gate
+    holds."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.distributed import launch
+
+    if torch.cuda.device_count() < 4:
+        print("kernel_probe --lm-ssd-four: needs four cards",
+              file=sys.stderr)
+        return 2
+    card = cs.card_line()
+    dev = torch.device("cuda:0")
+    torch.empty(1, device=dev)         # memory stats need the allocator
+    one = cs.mamba_phase(card)[:cs.MESH_LM_STEPS]
+    mamba32 = dataclasses.replace(ARCHS[cs.MAMBA_ARCH], dtype=torch.float32)
+    one32, control = (cs.lm_train_timed(
+        mamba32, cs.MAMBA_TRAIN_B, cs.QWEN_TRAIN_S, 1, cs.MESH_LM_STEPS - 1,
+        dev, micro_batches=u) for u in (1, 2))
+    base = cs.lm_train_timed(ssd_stand_in(torch.bfloat16), SSD_BF16_B,
+                             cs.QWEN_TRAIN_S, 1, cs.MESH_LM_STEPS - 1, dev)
+    torch.cuda.empty_cache()           # cuda:0 is rank 0's in the spawn
+    t0 = time.perf_counter()
+    error = None
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            launch.spawn(_ssd_four_rank, 4, args=(tmp,), device_type="cuda",
+                         store_dir=tmp,
+                         timeout_s=cs.MESH_COLLECTIVE_TIMEOUT_S)
+        except Exception as exc:  # noqa: BLE001 (reported, then exit 1)
+            error = f"{type(exc).__name__}: {exc}"[-3000:]
+        rows = {name: [json.loads(Path(tmp, f"{name}{r}.json").read_text())
+                       for r in range(4)
+                       if Path(tmp, f"{name}{r}.json").exists()]
+                for name in ("gate_clean", "gate_planted", "heads",
+                             "heads_f32", "decode", "bf16")}
+    seconds = time.perf_counter() - t0
+    if error or not all(rows.values()):
+        cs.emit("lm_ssd_four_failed", card=card, error=error,
+                rows=rows, seconds=seconds)
+        return 1
+    clean, planted = rows["gate_clean"][0], rows["gate_planted"][0]
+    passed = ssd_gate_passed(clean)
+    caught = planted["dt_bias_grad_rel_err"] > SSD_GRAD_REL
+    cs.emit("ssd_state_gate", card=card, clean=clean, planted=planted,
+            bounds=dict(loss=SSD_LOSS_REL, grad=SSD_GRAD_REL,
+                        out=SSD_OUT_REL), passed=passed, caught=caught)
+    diff = lambda a, b: [abs(x - y) / abs(y)  # noqa: E731
+                         for x, y in zip(a, b)]
+    heads, h32 = rows["heads"], rows["heads_f32"][0]
+    lead = dict(heads[0])
+    lead.update(layout="heads",
+                peak_bytes_per_card=[r["peak_bytes"] for r in heads],
+                ms_per_step_per_rank=[r["ms_per_step"] for r in heads],
+                loss_rel_diff_vs_one_card=diff(lead["losses"], one),
+                one_card_losses=one,
+                one_card_bf16_vs_f32_first_loss=abs(
+                    one[0] - one32["losses"][0]) / one32["losses"][0],
+                f32=dict(losses=h32["losses"], ms_per_step=h32["ms_per_step"],
+                         peak_bytes=h32["peak_bytes"],
+                         one_card_losses=one32["losses"],
+                         one_card_ms_per_step=one32["ms_per_step"],
+                         one_card_peak_bytes=one32["peak_bytes"],
+                         loss_rel_diff_vs_one_card=diff(h32["losses"],
+                                                        one32["losses"]),
+                         control_losses=control["losses"],
+                         control_rel_diff_vs_one_card=diff(
+                             control["losses"], one32["losses"])))
+    cs.emit("ssd_heads_four", card=card, **lead)
+    dec = rows["decode"]
+    cs.emit("ssd_decode_four", card=card, **dict(
+        dec[0], peak_bytes_per_card=[r["peak_bytes"] for r in dec],
+        ms_per_step_per_rank=[r["ms_per_step"] for r in dec]))
+    bf = rows["bf16"]
+    cs.emit("ssd_state_bf16_four", card=card, four=dict(
+        bf[0], peak_bytes_per_card=[r["peak_bytes"] for r in bf],
+        ms_per_step_per_rank=[r["ms_per_step"] for r in bf]), one_card=base,
+        speedup=base["ms_per_step"] / bf[0]["ms_per_step"],
+        seconds=seconds)
+    finite = all(math.isfinite(x) for r in heads + bf + [h32]
+                 for x in r["losses"] + r["grad_norms"])
+    f32_diff = lead["f32"]["loss_rel_diff_vs_one_card"][0]
+    ok = (passed and caught and finite and all(r["finite"] for r in dec)
+          and f32_diff <= cs.MESH_FOUR_LOSS_REL)
+    print(json.dumps({"phase": "lm_ssd_four_summary", "gate_passed": passed,
+                      "fault_caught": caught, "finite": finite,
+                      "heads_f32_first_loss_rel_diff": f32_diff,
+                      "heads_bf16_loss_rel_diff": lead[
+                          "loss_rel_diff_vs_one_card"],
+                      "one_card_bf16_vs_f32_first_loss": lead[
+                          "one_card_bf16_vs_f32_first_loss"], "ok": ok}),
+          flush=True)
+    print(card, flush=True)
+    return 0 if ok else 1
+
+
 def main() -> int:
     import torch
+
+    if len(sys.argv) == 2 and sys.argv[1] == "--lm-ssd-four":
+        return lm_ssd_four_probe()
 
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-serve-four":
         return lm_serve_four_probe()

@@ -57,7 +57,11 @@ configuration at a batch and sequence the card has run, so that the
 memory model can be held against the card's measured peak.
 
 Each LM record says whether its residual was sequence-sharded over tp
-(``sp``, and ``sp_encoder`` for whisper's encoder; ``sequence_parallel``).
+(``sp``, and ``sp_encoder`` for whisper's encoder; ``sequence_parallel``)
+and, for a model with SSD layers, how they split over tp (``ssd_layout``:
+heads, state or replicated).  ``--model 16`` builds the reference's own
+(16, 16) pod instead of the port's (32, 8); ``--arch`` without
+``--shape`` runs every cell of that arch.
 
 The LDA cells (``run_lda_cell``, ``--lda``), the paper's own workload: for
 each mode (1d, 2d, and both over the int16 byte wire) rank 0's
@@ -96,6 +100,7 @@ met on fake tensors, and how each was handled:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --chips 256 --out results/dryrun.json
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-130m --chips 256 --model 16
     PYTHONPATH=src python -m repro_torch.launch.dryrun --lda --chips 256
 """
 from __future__ import annotations
@@ -466,23 +471,36 @@ def sequence_parallel(cell: specs_lib.Cell, S: int) -> dict:
     return out
 
 
-def _mesh_name(chips: int, pods: int) -> str:
-    model = min(chips, mesh_lib.HOST_CARDS)
+def _mesh_name(chips: int, pods: int, model: int | None = None) -> str:
+    model = min(chips, mesh_lib.HOST_CARDS) if model is None else model
     return "x".join(str(n) for n in ((pods,) if pods > 1 else ())
                     + (chips // model, model))
 
 
+def ssd_layout(cell: specs_lib.Cell) -> dict:
+    """The SSD layout of a cell whose model has SSD layers
+    (``recurrent.ssd_layout``: heads, state or replicated), else
+    nothing."""
+    from repro_torch.models import recurrent as rec_lib
+
+    kinds = {s.kind for s in cell.cfg.pattern + cell.cfg.tail}
+    if "ssd" not in kinds:
+        return {}
+    return dict(ssd_layout=rec_lib.ssd_layout(cell.cfg, cell.policy))
+
+
 def run_cell(arch: str, shape: str, chips: int = 256, pods: int = 1,
-             probe: bool = True) -> dict:
-    """One cell on the production mesh of ``chips`` cards a pod (the
-    module docstring): a record with ``memory``, ``fits_hbm`` and, when
-    traced (``probe``), the memory's traced terms and ``costs``."""
+             probe: bool = True, model: int | None = None) -> dict:
+    """One cell on the production mesh of ``chips`` cards a pod, its
+    model axis ``model`` wide (``mesh.make_production_mesh``; the module
+    docstring): a record with ``memory``, ``fits_hbm`` and, when traced
+    (``probe``), the memory's traced terms and ``costs``."""
     sh = SHAPES[shape]
     B, S = sh["global_batch"], sh["seq_len"]
-    out = dict(arch=arch, shape=shape, mesh=_mesh_name(chips, pods),
+    out = dict(arch=arch, shape=shape, mesh=_mesh_name(chips, pods, model),
                chips=chips * pods)
     with fake_group(chips * pods):
-        mesh = mesh_lib.make_production_mesh(chips, pods)
+        mesh = mesh_lib.make_production_mesh(chips, pods, model)
         cell = specs_lib.build_cell(arch, shape, mesh)
         t0 = time.time()
         if cell.kind == "train":
@@ -495,7 +513,7 @@ def run_cell(arch: str, shape: str, chips: int = 256, pods: int = 1,
             costs = (probe_serve_costs(cell.cfg, cell.kind, B, S, mesh)
                      if probe else None)
     out.update(status="ok", kind=cell.kind, **sequence_parallel(cell, S),
-               t_trace=round(time.time() - t0, 1),
+               **ssd_layout(cell), t_trace=round(time.time() - t0, 1),
                micro=cell.micro_batches, memory=mem,
                fits_hbm=bool(mem["peak_device_bytes"] <= mesh_lib.HBM_BYTES))
     if costs is not None:
@@ -518,7 +536,8 @@ def run_config(cfg, batch: int, seq: int, mesh_shape: tuple) -> dict:
         costs = probe_costs(cfg, batch, seq, mesh)
     return dict(arch=cfg.name, batch=batch, seq=seq,
                 mesh="x".join(map(str, mesh_shape)), chips=world,
-                status="ok", **sequence_parallel(cell, seq), memory=mem,
+                status="ok", **sequence_parallel(cell, seq),
+                **ssd_layout(cell), memory=mem,
                 costs=costs,
                 fits_hbm=bool(mem["peak_device_bytes"] <= mesh_lib.HBM_BYTES))
 
@@ -755,8 +774,11 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--chips", type=int, default=roofline.CHIPS,
-                    help="cards a pod (the mesh is (chips // 8, 8))")
+                    help="cards a pod (the mesh is (chips // model, model))")
     ap.add_argument("--pods", type=int, default=1)
+    ap.add_argument("--model", type=int, default=None,
+                    help="the model axis's width (default min(chips, 8); "
+                         "16 gives the reference's (16, 16) pod)")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--no-probe", action="store_true")
     ap.add_argument("--out", default=None)
@@ -798,22 +820,29 @@ def main(argv=None) -> int:
         print(f"\n{len(results)} LDA cells, {len(bad)} failures",
               file=sys.stderr)
         return 1 if bad else 0
-    todo = cells() if args.all else [(args.arch, args.shape)]
+    if args.all:
+        todo = cells()
+    elif args.shape:
+        todo = [(args.arch, args.shape)]
+    else:                                   # every cell of the arch
+        todo = [c for c in cells() if c[0] == args.arch]
     results = []
     for arch, shape in todo:
         try:
             r = run_cell(arch, shape, args.chips, args.pods,
-                         probe=not args.no_probe)
+                         probe=not args.no_probe, model=args.model)
         except Exception as e:  # noqa: BLE001 (a failed cell is a record)
             r = dict(arch=arch, shape=shape,
-                     mesh=_mesh_name(args.chips, args.pods), status="fail",
+                     mesh=_mesh_name(args.chips, args.pods, args.model),
+                     status="fail",
                      error=f"{type(e).__name__}: {e}",
                      tb=traceback.format_exc()[-2000:])
         print(json.dumps(r), flush=True)
         results.append(r)
 
     for a, sh, why in skipped_cells():
-        results.append(dict(arch=a, shape=sh, status="skip", reason=why))
+        if args.all or (a == args.arch and args.shape in (None, sh)):
+            results.append(dict(arch=a, shape=sh, status="skip", reason=why))
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

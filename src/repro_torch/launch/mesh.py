@@ -29,13 +29,21 @@ NVLINK_BW = 900e9              # bytes/s a card, NVLink 4, inside one host
 NETWORK_BW = 50e9              # bytes/s a card, 400 Gb/s NDR, between hosts
 
 
-def axis_bandwidth(axis: str, cards: int) -> float:
+def axis_bandwidth(axis: str, cards: int, width: int | None = None) -> float:
     """The bandwidth a card's collectives over mesh ``axis`` get on a mesh
-    of ``cards``: NVLink for the "model" axis (``make_production_mesh``
-    keeps it inside a host) and for any axis of a mesh that fits one host;
-    the network for "data" and "pod" across hosts."""
-    return NVLINK_BW if axis == "model" or cards <= HOST_CARDS \
-        else NETWORK_BW
+    of ``cards``.  Any axis of a mesh that fits one host gets NVLink.
+    Across hosts, the "model" axis (the minor one: its ranks are
+    consecutive) gets NVLink while its ``width`` fits one host's
+    ``HOST_CARDS`` (``make_production_mesh`` keeps it so by default;
+    ``None`` is such a width), and the network beyond: a 16-wide model
+    axis spans two 8-card NVLink hosts, and unless an NVLink switch joins
+    them, which this module has no figure for, its collectives cross the
+    network.  "data" and "pod" cross the network."""
+    if cards <= HOST_CARDS:
+        return NVLINK_BW
+    if axis == "model" and (width is None or width <= HOST_CARDS):
+        return NVLINK_BW
+    return NETWORK_BW
 
 
 def _init(shape: tuple, names: tuple):
@@ -47,12 +55,14 @@ def _init(shape: tuple, names: tuple):
     return init_device_mesh(kind, shape, mesh_dim_names=names)
 
 
-def make_production_mesh(chips: int, pods: int = 1):
+def make_production_mesh(chips: int, pods: int = 1,
+                         model: int | None = None):
     """A ("data", "model") ``DeviceMesh`` of ``chips`` cards a pod, with a
-    leading "pod" axis when ``pods`` > 1: the model axis is
-    ``min(chips, HOST_CARDS)`` wide, so tensor parallelism runs over
-    NVLink.  The default group must hold ``pods * chips`` ranks."""
-    model = min(chips, HOST_CARDS)
+    leading "pod" axis when ``pods`` > 1: the model axis is ``model``
+    wide, by default ``min(chips, HOST_CARDS)``, so that tensor
+    parallelism runs over NVLink (the reference's own pod is (16, 16):
+    ``model=16``).  The default group must hold ``pods * chips`` ranks."""
+    model = min(chips, HOST_CARDS) if model is None else model
     if chips % model:
         raise ValueError(f"{chips} cards do not split into model groups of "
                          f"{model}")

@@ -18,8 +18,9 @@ a mesh of H100 cards, not from HLO: the three terms of the reference's
 roofline, each a card's time, are its FLOPs over 989 TFLOP/s, the bytes
 its ops read and write one by one (eager PyTorch's unfused traffic) over
 3.35 TB/s, and each mesh axis's collective bytes over that axis's
-bandwidth (``mesh.axis_bandwidth``).  ``CHIPS`` is the dry run's default
-card count (the reference's 256-chip pod); a record carries its own.
+bandwidth (``mesh.axis_bandwidth``, by its width in the record's mesh).
+``CHIPS`` is the dry run's default card count (the reference's 256-chip
+pod); a record carries its own.
 """
 from __future__ import annotations
 
@@ -118,6 +119,17 @@ def model_flops(arch: str, shape: str) -> float:
                       sh["seq_len"])
 
 
+def axis_widths(mesh_name: str) -> dict:
+    """{axis: width} of a record's mesh name ("32x8", "2x16x16": the
+    axes ("pod",) "data", "model"); {} for a name of another form."""
+    try:
+        sizes = [int(n) for n in mesh_name.split("x")]
+    except ValueError:
+        return {}
+    names = ("pod", "data", "model")[-len(sizes):] if len(sizes) <= 3 else ()
+    return dict(zip(names, sizes))
+
+
 def analyze_cell(cell: dict) -> dict:
     """The roofline of one dry-run record with ``costs`` (every term a
     card's; ``model_flops`` is the global step's, divided by the record's
@@ -126,7 +138,8 @@ def analyze_cell(cell: dict) -> dict:
     cards = cell["chips"]
     t_compute = costs["flops"] / PEAK_FLOPS_BF16
     t_memory = costs["op_bytes"] / HBM_BW
-    t_collective = sum(b / axis_bandwidth(axis, cards)
+    width = axis_widths(cell.get("mesh", ""))
+    t_collective = sum(b / axis_bandwidth(axis, cards, width.get(axis))
                        for by_axis in costs["coll_bytes"].values()
                        for axis, b in by_axis.items())
     terms = dict(compute=t_compute, memory=t_memory, collective=t_collective)

@@ -24,9 +24,11 @@ whose backward is its transpose:
   result from rank j (``all_to_all_single``); its own transpose, so the
   backward runs it on the gradient.  The expert-parallel MoE's dispatch
   and return.
-* ``tp_slice`` / ``tp_gather``: this rank's block of a tensor replicated
-  over tp (the backward pads the gradient with zeros), and the blocks of
-  every tp rank put back together (the backward takes this rank's block).
+* ``tp_slice`` / ``tp_gather`` / ``tp_scatter_sum``: this rank's block of
+  a tensor replicated over tp (the backward pads the gradient with zeros),
+  the blocks of every tp rank put back together (the backward takes this
+  rank's block), and this rank's block of the sum of the ranks' partial
+  tensors (a reduce-scatter; the backward all-gathers).
 * ``seq_enter`` / ``seq_leave`` (tp, sequence parallelism: the
   residual is (B, S / tp, D) on each rank between layers, the policy's
   ``seq``): a layer's input all-gathered along S where ``copy_in`` would
@@ -309,6 +311,14 @@ def tp_gather(x: torch.Tensor, dim: int, ctx: MeshContext) -> torch.Tensor:
     rank's block of the complete gradient)."""
     return _Gather.apply(x, dim, (ctx.tp,), (), ctx) if ctx.tp_size > 1 \
         else x
+
+
+def tp_scatter_sum(x: torch.Tensor, dim: int,
+                   ctx: MeshContext) -> torch.Tensor:
+    """The sum over tp of the ranks' partial ``x``, this rank's block of it
+    along ``dim`` (a reduce-scatter; the backward all-gathers the
+    gradient)."""
+    return _ReduceScatter.apply(x, dim, ctx) if ctx.tp_size > 1 else x
 
 
 def all_to_all(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:

@@ -23,24 +23,42 @@ as ``param_specs`` says.  RG-LRU is diagonal in its R channels, so it runs
 channel-parallel over tp: column-parallel ``w_in``, the conv, gates and
 scan on this rank's channels, row-parallel ``w_out`` all-reduced (under
 sequence parallelism, ``policy.seq``: the input all-gathered and the
-output reduce-scattered along S, as every mixer of the port).  SSD
-runs head-parallel when its heads divide over tp: this rank's heads of
-``w_z``, ``w_x``, ``w_dt`` and ``w_out``, the per-head vectors sliced to
-them, and the gated RMSNorm's sum of squares all-reduced over tp (it
-spans every head).  ``w_B`` and ``w_C`` (``N`` columns, shared by every
-head) are all-gathered over tp and ``B``, ``C`` computed whole on every
-rank, so the ``C . B`` contraction needs no all-reduce; ROADMAP lists the
-N-sharded version.  When the heads do not divide, SSD is replicated over
-tp (``w_B`` and ``w_C`` still gathered); a channel split that cuts a head
-(``H * P`` divides, ``H`` does not) raises.
+output reduce-scattered along S, as every mixer of the port).
+
+SSD is split over tp by ``ssd_layout``, the reference's ``shard_if`` of
+its state (``ssd_plan`` says what each rank computes):
+
+* heads (``H`` divides): this rank's heads of ``w_x``, ``w_dt`` and the
+  per-head vectors, state (B, H / tp, P, N).  ``w_B`` and ``w_C`` (``N``
+  columns, shared by every head) are all-gathered over tp and ``B``,
+  ``C`` computed whole on every rank, so ``C . B`` needs no all-reduce.
+* state (``H`` does not divide, ``N`` does): the core is linear in its
+  ``N`` columns (``C . B``, the chunk states and ``C . h`` each sum over
+  ``N`` or keep them apart), so each rank runs it on every head and its
+  ``N / tp`` columns of ``w_B`` / ``w_C``, state (B, H, P, N / tp), and
+  its partial ``y`` is reduce-scattered over tp along the ``H * P``
+  channels (``parallel.tp_scatter_sum``; all-reduced where they do not
+  divide).  ``w_x`` is all-gathered (the core reads every head).
+* replicated (neither divides): the core whole on every rank, state
+  (B, H, P, N), and this rank's channels of its ``y`` kept.
+
+In each, where ``H * P`` divides over tp, the tail (the skip term
+``D * x``, added once after the sum, the gate on this rank's ``w_z``
+columns, the gated RMSNorm, whose sum of squares is all-reduced over tp,
+and the row-parallel ``w_out``) runs on this rank's ``H * P / tp``
+channels, which need not start at a head; else it runs whole.  Where a
+rank computes a share, every input of that share replicated over tp (the
+core's ``w_dt``, ``log_a``, ``dt_bias``, and ``w_B`` / ``w_C`` / ``w_x``
+where their columns are not sharded; the channel tail's ``d_skip``)
+enters by ``parallel.copy_in``, so that its gradient is summed over tp.
 
 Decode over a mesh (a policy without ``weight_gather``) runs the same
 split on this rank's shard of the state: the RG-LRU's ``h`` and ``conv``
-on its channels, the SSD's ``h`` on its heads.  The FSDP weights stay
-sharded (``parallel.dp_dense``), and the SSD's ``B`` and ``C``, where
-their ``N`` columns are sharded over tp, are all-gathered as activations.
-A state the reference shards by ``N`` (heads that do not divide, ``N``
-that does) is the N-sharded SSD of ROADMAP item 13h, and raises.
+on its channels, the SSD's ``h`` on its heads, its ``N`` columns or
+whole.  The FSDP weights stay sharded (``parallel.dp_dense``): ``x``'s
+projections come out in the weights' stored columns, and where the core
+needs more (``B`` and ``C`` in the heads layout, ``x``'s channels in the
+others) they are all-gathered over tp as activations.
 """
 from __future__ import annotations
 
@@ -51,8 +69,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from . import parallel
-from .common import (NO_SHARDING, P, ModelConfig, ShardingPolicy, init_dense,
-                     rms_norm)
+from .common import (NO_SHARDING, P, ModelConfig, ShardingPolicy, entry_axes,
+                     init_dense, rms_norm)
 
 RGLRU_C = 8.0
 LRU_CHUNK = 512
@@ -321,59 +339,84 @@ def ssd_specs(cfg: ModelConfig, policy: ShardingPolicy) -> SSDParams:
         w_out=P(policy.shard_if(H * Pd), fsd))
 
 
-def _ssd_local(p: SSDParams, cfg: ModelConfig, policy: ShardingPolicy):
-    """This rank's heads of ``p``, FSDP-gathered, ``w_B`` / ``w_C`` whole,
-    and whether the heads are partitioned over tp."""
-    H, Pd, N = ssd_dims(cfg)
-    sp, ctx = ssd_specs(cfg, policy), policy.ctx
-    th, thp = policy.shard_if(H), policy.shard_if(H * Pd)
-    if thp is not None and th is None and ctx.tp_size > 1:
-        raise NotImplementedError(
-            f"SSD over tp = {ctx.tp_size}: its {H * Pd} channels divide and "
-            f"its {H} heads do not, so a shard would cut a head; the "
-            "channel-parallel SSD is a ROADMAP item")
-    split = th is not None and ctx.tp_size > 1
+def ssd_layout(cfg: ModelConfig, policy: ShardingPolicy) -> str:
+    """Which part of the SSD core a tp rank computes, by the reference's
+    ``shard_if`` of the state: ``"heads"`` where ``H`` divides over tp,
+    else ``"state"`` where ``N`` does, else ``"replicated"`` (module
+    docstring)."""
+    H, _, N = ssd_dims(cfg)
+    if policy.shard_if(H) is not None:
+        return "heads"
+    return "state" if policy.shard_if(N) is not None else "replicated"
+
+
+def ssd_state_spec(cfg: ModelConfig, policy: ShardingPolicy,
+                   lead: tuple = ()) -> SSDState:
+    """The ``P`` of one layer's ``SSDState`` (``lead``: a stacked state's
+    block axis): batch over dp, then the heads over tp in the heads layout,
+    ``N`` in the state layout, nothing in the replicated one."""
+    layout = ssd_layout(cfg, policy)
+    return SSDState(h=P(*lead, policy.batch(),
+                        policy.tp if layout == "heads" else None, None,
+                        policy.tp if layout == "state" else None))
+
+
+class SSDPlan(NamedTuple):
+    """How a rank runs one SSD layer under a policy (``ssd_plan``)."""
+
+    layout: str     # ssd_layout
+    split: bool     # tp > 1 and each rank's core a share of the whole
+    chan: bool      # the tail on this rank's H * P / tp channels
+
+
+def ssd_plan(cfg: ModelConfig, policy: ShardingPolicy) -> SSDPlan:
+    """``split``: the core's gradient is this rank's share (its heads, its
+    ``N`` columns, or, for a replicated core whose output only this
+    rank's channels read, those channels), so the core's inputs replicated
+    over tp enter it by ``copy_in``.  ``chan``: ``H * P`` divides over tp
+    and the skip term, the gate, the gated norm and ``w_out`` run on this
+    rank's channels, which need not start at a head."""
+    H, Pd, _ = ssd_dims(cfg)
+    layout, tp = ssd_layout(cfg, policy), policy.tp_size()
+    chan = tp > 1 and policy.shard_if(H * Pd) is not None
+    return SSDPlan(layout, tp > 1 and (layout == "state" or chan), chan)
+
+
+def _ssd_local(p: SSDParams, cfg: ModelConfig, policy: ShardingPolicy,
+               plan: SSDPlan) -> SSDParams:
+    """This rank's view of ``p`` for a training step or a prefill, the
+    FSDP shards gathered: the core's weights (its heads of ``w_x`` and
+    ``w_dt`` and ``B``, ``C`` whole in the heads layout; its ``N`` columns
+    of ``w_B``, ``w_C`` and ``w_x``, ``w_dt`` whole in the state layout;
+    all of them whole in the replicated one), ``log_a`` and ``dt_bias``
+    sliced to its heads where it has heads, and the tail's ``w_z`` columns
+    and ``w_out`` rows of its channels under ``plan.chan`` (``d_skip`` and
+    ``norm_w`` as stored: ``ssd`` cuts the skip term's channels)."""
+    sp, ctx, tp = ssd_specs(cfg, policy), policy.ctx, policy.tp
+    split, heads = plan.split, plan.layout == "heads"
     g = lambda w, stored, wanted: policy.gather_fsdp(  # noqa: E731
         w, wanted, stored)
 
-    def whole(w, stored):        # N columns, read by every local head
+    def whole(w, stored):        # every column, read by the core
         w = parallel.reshard(w, stored, P(None, None), ctx, partial=split)
         return parallel.copy_in(w, ctx) if split and \
-            policy.shard_if(N) is None else w
+            tp not in entry_axes(stored[1]) else w
 
-    def heads(v):                # replicated (H,) vectors, local heads
-        return parallel.tp_slice(parallel.copy_in(v, ctx), 0, ctx) \
-            if split else v
+    def vec(v):                  # replicated (H,) vectors read by the core
+        v = parallel.copy_in(v, ctx) if split else v
+        return parallel.tp_slice(v, 0, ctx) if split and heads else v
 
+    ht = P(None, tp if split and heads else None)
+    nt = P(None, tp if plan.layout == "state" and split else None)
     return SSDParams(
-        w_z=g(p.w_z, sp.w_z, P(None, thp)), w_x=g(p.w_x, sp.w_x, P(None, thp)),
-        w_B=whole(p.w_B, sp.w_B), w_C=whole(p.w_C, sp.w_C),
-        w_dt=g(p.w_dt, sp.w_dt, P(None, th)), log_a=heads(p.log_a),
-        d_skip=heads(p.d_skip), dt_bias=heads(p.dt_bias), norm_w=p.norm_w,
-        w_out=g(p.w_out, sp.w_out, P(thp, None))), split
-
-
-def _ssd_decode_local(p: SSDParams, cfg: ModelConfig,
-                      policy: ShardingPolicy):
-    """The decode step's view of this rank's ``SSDParams`` (the weights'
-    FSDP shards as they lie, the per-head vectors sliced to its heads),
-    whether the heads are partitioned over tp, and whether ``B`` and ``C``
-    come out sharded over tp by ``N``."""
-    H, Pd, N = ssd_dims(cfg)
-    ctx = policy.ctx
-    th, thp = policy.shard_if(H), policy.shard_if(H * Pd)
-    if ctx.tp_size > 1 and th is None and (
-            thp is not None or policy.shard_if(N) is not None):
-        raise NotImplementedError(
-            f"SSD decode over tp = {ctx.tp_size}: its {H} heads do not "
-            "divide, and the reference then shards the state by N or cuts "
-            "a head: the N-sharded SSD is ROADMAP item 13h")
-    split = th is not None and ctx.tp_size > 1
-    heads = (lambda v: parallel.tp_slice(v, 0, ctx)) if split else \
-        (lambda v: v)
-    return (p._replace(log_a=heads(p.log_a), d_skip=heads(p.d_skip),
-                       dt_bias=heads(p.dt_bias)), split,
-            split and policy.shard_if(N) is not None)
+        w_z=g(p.w_z, sp.w_z, P(None, tp if plan.chan else None)),
+        w_x=g(p.w_x, sp.w_x, ht) if heads else whole(p.w_x, sp.w_x),
+        w_B=g(p.w_B, sp.w_B, nt) if nt[1] else whole(p.w_B, sp.w_B),
+        w_C=g(p.w_C, sp.w_C, nt) if nt[1] else whole(p.w_C, sp.w_C),
+        w_dt=g(p.w_dt, sp.w_dt, ht) if heads else whole(p.w_dt, sp.w_dt),
+        log_a=vec(p.log_a), d_skip=p.d_skip, dt_bias=vec(p.dt_bias),
+        norm_w=p.norm_w,
+        w_out=g(p.w_out, sp.w_out, P(tp if plan.chan else None, None)))
 
 
 def _gated_norm_split(w: torch.Tensor, g: torch.Tensor, eps: float,
@@ -386,42 +429,15 @@ def _gated_norm_split(w: torch.Tensor, g: torch.Tensor, eps: float,
     return (gf * torch.rsqrt(var + eps) * w.float()).to(g.dtype)
 
 
-def ssd(p: SSDParams, cfg: ModelConfig, x: torch.Tensor,
-        state: SSDState | None = None, *,
-        policy: ShardingPolicy = NO_SHARDING):
-    """Mamba2 mixer.  x: (B,S,D) -> (B,S,D), new_state.  Under a policy,
-    this rank's heads (module docstring)."""
-    H, P, N = ssd_dims(cfg)
-    width, split, decode = H * P, False, False
-    proj = lambda a, w: torch.einsum(  # noqa: E731
-        "bsd,di->bsi", a, w.to(a.dtype))
-    if policy.enabled:
-        decode = not policy.weight_gather
-        if decode:
-            p, split, n_split = _ssd_decode_local(p, cfg, policy)
-            ctx = policy.ctx
-            dd = lambda w: parallel.dp_dense(  # noqa: E731
-                proj, x, w, ctx, contract_dim=-1)
-        else:
-            p, split = _ssd_local(p, cfg, policy)
-            x = parallel.seq_enter(x, policy.ctx, seq=policy.seq,
-                                   split=split)
-        H = p.w_dt.shape[-1]
-    B, S, D = x.shape
-    if decode:
-        z, xh, Bm, Cm, dt = (dd(w) for w in (p.w_z, p.w_x, p.w_B, p.w_C,
-                                              p.w_dt))
-        if n_split:     # N columns over tp: gather the activations
-            Bm, Cm = (parallel.tp_gather(a, 2, ctx) for a in (Bm, Cm))
-    else:
-        z, xh, Bm, Cm, dt = (proj(x, w) for w in (p.w_z, p.w_x, p.w_B,
-                                                  p.w_C, p.w_dt))
-    xh = xh.reshape(B, S, H, P)
-    dt = F.softplus(dt.float() + p.dt_bias)                  # (B,S,H)
-    A = -torch.exp(p.log_a)                                  # (H,) < 0
-    Bf, Cf = Bm.float(), Cm.float()
-
-    if state is None and S > 1:
+def _ssd_core(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              Bf: torch.Tensor, Cf: torch.Tensor, cfg: ModelConfig,
+              h0: torch.Tensor | None, scan: bool):
+    """The SSD core over the heads of ``xh`` (B, S, H, P) and the ``N``
+    columns of ``Bf``, ``Cf``: chunkwise over the sequence (``scan``), else
+    one recurrent step from ``h0``.  Returns y (B, S, H, P) in float32 and
+    the last state (B, H, P, N)."""
+    B, S, H, P_ = xh.shape
+    if scan:
         chunk = min(cfg.ssm_chunk, S)
         pad = -S % chunk
         if pad:
@@ -430,31 +446,98 @@ def ssd(p: SSDParams, cfg: ModelConfig, x: torch.Tensor,
             Bf = F.pad(Bf, (0, 0, 0, pad))
             Cf = F.pad(Cf, (0, 0, 0, pad))
         y, h_last = _ssd_chunked(xh.float(), dt, A, Bf, Cf, chunk, None)
-        y = y[:, :S]
-    else:  # decode: single recurrent step
-        h0 = state.h if state is not None else torch.zeros(
-            (B, H, P, N), dtype=torch.float32, device=x.device)
-        a_t = torch.exp(dt[:, 0] * A)                        # (B,H)
-        h_last = (a_t[..., None, None] * h0
-                  + torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], Bf[:, 0],
-                                 xh[:, 0].float()))
-        y = torch.einsum("bn,bhpn->bhp", Cf[:, 0], h_last)[:, None]
-    y = y + p.d_skip[None, None, :, None] * xh[:, :S].float()
-    y = y.reshape(B, S, H * P)
+        return y[:, :S], h_last
+    if h0 is None:
+        h0 = torch.zeros((B, H, P_, Bf.shape[-1]), dtype=torch.float32,
+                         device=xh.device)
+    a_t = torch.exp(dt[:, 0] * A)                            # (B,H)
+    h_last = (a_t[..., None, None] * h0
+              + torch.einsum("bh,bn,bhp->bhpn", dt[:, 0], Bf[:, 0],
+                             xh[:, 0].float()))
+    y = torch.einsum("bn,bhpn->bhp", Cf[:, 0], h_last)[:, None]
+    return y, h_last
+
+
+def ssd(p: SSDParams, cfg: ModelConfig, x: torch.Tensor,
+        state: SSDState | None = None, *,
+        policy: ShardingPolicy = NO_SHARDING):
+    """Mamba2 mixer.  x: (B,S,D) -> (B,S,D), new_state.  Under a policy,
+    this rank's part of it (``ssd_plan``; module docstring)."""
+    H, Pd, N = ssd_dims(cfg)
+    width = H * Pd
+    proj = lambda a, w: torch.einsum(  # noqa: E731
+        "bsd,di->bsi", a, w.to(a.dtype))
+    plan, ctx = SSDPlan("replicated", False, False), None
+    decode = policy.enabled and not policy.weight_gather
+    stored, x_tail = p, x
+    if policy.enabled:
+        plan, ctx = ssd_plan(cfg, policy), policy.ctx
+    heads = plan.layout == "heads"
+    if decode:
+        dd = lambda w: parallel.dp_dense(  # noqa: E731
+            proj, x, w, ctx, contract_dim=-1)
+        if plan.split and heads:
+            p = p._replace(log_a=parallel.tp_slice(p.log_a, 0, ctx),
+                           dt_bias=parallel.tp_slice(p.dt_bias, 0, ctx))
+    elif policy.enabled:
+        p = _ssd_local(p, cfg, policy, plan)
+        x = parallel.seq_enter(x, ctx, seq=policy.seq, split=plan.split)
+        # a replicated tail after a core of shares enters on its own
+        x_tail = x if plan.chan or not plan.split else parallel.seq_enter(
+            x_tail, ctx, seq=policy.seq, split=False)
+    B, S, D = x.shape
+    if decode:
+        z, xh_st, Bm, Cm, dt = (dd(w) for w in (p.w_z, p.w_x, p.w_B, p.w_C,
+                                                 p.w_dt))
+        xh = xh_st
+        if plan.chan and not heads:     # the core reads every channel
+            xh = parallel.tp_gather(xh_st, 2, ctx)
+        if plan.split and heads and policy.shard_if(N) is not None:
+            Bm, Cm = (parallel.tp_gather(a, 2, ctx) for a in (Bm, Cm))
+    else:
+        z, xh, Bm, Cm, dt = (proj(a, w) for a, w in (
+            (x_tail, p.w_z), (x, p.w_x), (x, p.w_B), (x, p.w_C), (x, p.w_dt)))
+    Hc = dt.shape[-1]                   # the core's heads
+    dt = F.softplus(dt.float() + p.dt_bias)                  # (B,S,Hc)
+    A = -torch.exp(p.log_a)                                  # (Hc,) < 0
+    y, h_last = _ssd_core(xh.reshape(B, S, Hc, Pd), dt, A, Bm.float(),
+                          Cm.float(), cfg,
+                          None if state is None else state.h,
+                          state is None and S > 1)
+    y = y.reshape(B, S, Hc * Pd)
+    if plan.split and not heads:        # y and xh on the tail's channels
+        if plan.layout == "state":      # the ranks' sums over their N
+            y = (parallel.tp_scatter_sum(y, 2, ctx) if plan.chan
+                 else parallel.reduce_out(y, ctx))
+        else:                           # a replicated core
+            y = parallel.tp_slice(y, 2, ctx)
+        if decode:
+            xh = xh_st
+        elif plan.chan:
+            xh = parallel.tp_slice(xh, 2, ctx)
+        else:
+            xh = proj(x_tail, policy.gather_fsdp(
+                stored.w_x, P(None, None), ssd_specs(cfg, policy).w_x))
+    skip = p.d_skip
+    if plan.chan:                       # this rank's channels' skip
+        skip = parallel.tp_slice(
+            parallel.copy_in(skip, ctx).repeat_interleave(Pd), 0, ctx)
+    else:
+        skip = skip.repeat_interleave(Pd)
+    y = y + skip * xh.float()
     # gated RMSNorm (mamba2)
-    if split:
+    if plan.chan:
         y = _gated_norm_split(p.norm_w, y.to(x.dtype) * F.silu(z),
-                              cfg.norm_eps, width, policy.ctx)
+                              cfg.norm_eps, width, ctx)
     else:
         y = rms_norm(p.norm_w, y.to(x.dtype) * F.silu(z), cfg.norm_eps,
                      False)
     out_proj = lambda a, w: torch.einsum(  # noqa: E731
         "bsi,id->bsd", a, w.to(a.dtype))
-    out = (parallel.dp_dense(out_proj, y, p.w_out, policy.ctx, out_dim=-1)
+    out = (parallel.dp_dense(out_proj, y, p.w_out, ctx, out_dim=-1)
            if decode else out_proj(y, p.w_out))
     if policy.enabled:
-        out = parallel.seq_leave(out, policy.ctx, seq=policy.seq,
-                                 split=split)
+        out = parallel.seq_leave(out, ctx, seq=policy.seq, split=plan.chan)
     return out, SSDState(h=h_last)
 
 

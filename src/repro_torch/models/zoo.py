@@ -304,17 +304,11 @@ def decode_state_specs(cfg: ModelConfig, policy: ShardingPolicy
     """The ``P`` tree of a ``DecodeState``, as the reference's table:
     caches sharded by batch over dp and KV heads over tp, or by slot over
     tp when the KV heads do not divide (context parallelism); recurrent
-    state channels over tp where they divide."""
+    state channels over tp where they divide (the SSD's ``h`` by
+    ``recurrent.ssd_layout``)."""
     b = policy.batch()
     tkv = policy.shard_if(cfg.num_kv_heads)
     tw = None if tkv is not None else policy.tp
-
-    def ssd_h(lead):
-        H, _, N = rec_lib.ssd_dims(cfg)
-        th = policy.shard_if(H)
-        return rec_lib.SSDState(h=P(*lead, b, th, None,
-                                    policy.shard_if(N) if th is None
-                                    else None))
 
     def one(spec: LayerSpec, lead: tuple):
         if spec.kind in ("global", "local"):
@@ -325,8 +319,8 @@ def decode_state_specs(cfg: ModelConfig, policy: ShardingPolicy
             tr = policy.shard_if(cfg.rglru_width)
             return rec_lib.RGLRUState(h=P(*lead, b, tr),
                                       conv=P(*lead, b, None, tr))
-        if spec.kind == "ssd":
-            return ssd_h(lead)
+        if spec.kind == "ssd":     # by its layout: heads, N or neither
+            return rec_lib.ssd_state_spec(cfg, policy, lead)
         raise ValueError(spec.kind)
 
     ckv = None

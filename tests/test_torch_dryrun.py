@@ -28,6 +28,11 @@ them.
   axis sizes), exactly, and a prefill holds no cache.
 * (e) ``render_table``, ``perf_report`` and ``hlo_breakdown`` render the
   records.
+* (f) mamba2-130m's four cells on the reference's own (16, 16) mesh
+  (``--model 16``): 24 heads do not divide 16, N = 128 does, so each
+  cell runs the SSD's state layout, ``ok``; the train cell's
+  reduce-scatters over "model" equal a reckoning of them, exactly.
+  ``make_production_mesh(256)`` is still (32, 8).
 """
 import json
 import math
@@ -67,6 +72,14 @@ for a in %r:
                 dryrun.at_depth(cfg, nb), 4, 256, mesh), mesh)
             t.pop("collectives")
             recs["trace" + str(nb) + "/" + a] = t
+for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+    recs["ssd16/" + shape] = dryrun.run_cell("mamba2-130m", shape, 256,
+                                             model=16)
+from repro_torch.launch import mesh as mesh_lib
+with dryrun.fake_group(256):
+    recs["mesh/256"] = list(mesh_lib.make_production_mesh(256).mesh.shape)
+    recs["mesh/256/16"] = list(mesh_lib.make_production_mesh(
+        256, model=16).mesh.shape)
 rows = hlo_breakdown.breakdown("qwen3-moe-30b-a3b", "train_4k", 2, 256)
 recs["breakdown"] = [list(r) for r in rows]
 with open(out_dir + "/records.json", "w") as f:
@@ -261,3 +274,44 @@ def test_hlo_breakdown_lists_the_expert_all_to_alls(records):
     assert len(a2a) == 2 * 6 and all(r[2] == "model" for r in a2a)
     assert all("moe.py" in r[4] or "(backward)" in r[4] for r in a2a)
     assert "all-to-all" in stdout and "top 25:" in stdout
+
+
+SSD_CELLS = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+
+@pytest.mark.parametrize("shape", SSD_CELLS)
+def test_mamba2_cells_on_the_reference_pod_run_the_state_layout(records,
+                                                                shape):
+    """(f)"""
+    rec = records[0][f"ssd16/{shape}"]
+    assert rec["status"] == "ok", rec
+    assert (rec["mesh"], rec["chips"], rec["ssd_layout"]) == (
+        "16x16", 256, "state")
+    assert rec["fits_hbm"] and rec["costs"]["flops"] > 0
+    assert rec["costs"]["coll_bytes"]["reduce-scatter"]["model"] > 0
+
+
+def test_mamba2_train_cell_reduce_scatters_the_partial_ssd_output(records):
+    """(f): the reduce-scatters over "model" of train_4k at (16, 16), result
+    bytes (the reference's convention), per card: each layer's partial
+    (16, 4096, H * P) float32 SSD output to its channels and the block's
+    output to its block of the sequence, in the forward and again in the
+    recompute; the embedding's output and the head input's gradient; each
+    layer's ``w_x`` gradient (gathered over "model" for the core) in the
+    backward."""
+    cfg = tarchs.ARCHS["mamba2-130m"]
+    L, D, tp = cfg.num_layers, cfg.d_model, 16
+    B, S, HP = 256 // 16, 4096, 2 * cfg.d_model
+    y = B * S * HP * 4 // tp
+    out = B * (S // tp) * D * 2
+    want = 2 * L * y + 2 * L * out + 2 * out + L * D * HP * 2 // tp
+    rec = records[0]["ssd16/train_4k"]
+    assert rec["sp"] and rec["costs"]["coll_bytes"]["reduce-scatter"][
+        "model"] == want
+
+
+def test_production_mesh_keeps_its_default_shape(records):
+    """(f): the model axis stays min(chips, 8) unless asked."""
+    recs = records[0]
+    assert recs["mesh/256"] == [32, 8]
+    assert recs["mesh/256/16"] == [16, 16]

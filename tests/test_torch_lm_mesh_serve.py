@@ -298,7 +298,7 @@ class PortMesh:
 
 DECODE_CELLS = [(a, s) for a, s in tarchs.cells()
                 if tarchs.SHAPES[s]["kind"] == "decode"]
-SPEC_MESHES = [(1, 2), (2, 2), (2, 4), (32, 8)]
+SPEC_MESHES = [(1, 2), (2, 2), (2, 4), (32, 8), (16, 16)]
 
 
 @pytest.mark.parametrize("mesh_shape", SPEC_MESHES,

@@ -8,7 +8,8 @@ the reference's for every ``configs.archs.cells()`` entry (plain Python
 arithmetic on the same configs); ``input_specs`` matches in shape and
 dtype for every cell (meta tensors against ShapeDtypeStructs); the spec
 tables match leaf by leaf, in axis names, for every arch at meshes (1, 2),
-(2, 2) and (2, 4); ``make_policy`` matches field by field.  Both packages'
+(2, 2), (2, 4) and the reference's own (16, 16); ``make_policy`` matches
+field by field.  Both packages'
 policies get a stand-in mesh with only the shape (the reference's
 ``shard_if`` reads ``mesh.shape``, the port's ``mesh.size``).
 """
@@ -37,7 +38,7 @@ from repro_torch.models.common import P
 
 CELLS = jarchs.cells()
 ARCH_NAMES = sorted(jarchs.ARCHS)
-MESHES = [(1, 2), (2, 2), (2, 4)]
+MESHES = [(1, 2), (2, 2), (2, 4), (16, 16)]   # (16, 16): the reference's pod
 DTYPES = {jnp.int32: torch.int32, jnp.bfloat16: torch.bfloat16}
 
 
@@ -189,6 +190,53 @@ def test_h100_constants():
     assert chip_smoke.BF16_FLOPS is tmesh.PEAK_FLOPS_BF16
     assert chip_smoke.FP32_FLOPS is tmesh.PEAK_FLOPS_F32
     assert chip_smoke.HBM_BYTES_PER_S is tmesh.HBM_BW
+
+
+@pytest.mark.parametrize("axis,cards,width,want", [
+    ("model", 256, None, "nvlink"), ("model", 256, 8, "nvlink"),
+    ("model", 256, 16, "network"), ("model", 16, 16, "network"),
+    ("data", 256, 16, "network"), ("data", 8, 2, "nvlink"),
+    ("model", 8, 8, "nvlink"), ("pod", 512, 2, "network")])
+def test_axis_bandwidth_reads_the_axis_width(axis, cards, width, want):
+    """A model axis wider than one host's 8 cards spans two NVLink
+    domains: its collectives cross the network."""
+    bw = dict(nvlink=tmesh.NVLINK_BW, network=tmesh.NETWORK_BW)[want]
+    assert tmesh.axis_bandwidth(axis, cards, width) == bw
+
+
+@pytest.mark.parametrize("name,want", [
+    ("32x8", {"data": 32, "model": 8}),
+    ("16x16", {"data": 16, "model": 16}),
+    ("2x16x16", {"pod": 2, "data": 16, "model": 16}), ("", {})])
+def test_roofline_reads_axis_widths_from_the_mesh_name(name, want):
+    assert troof.axis_widths(name) == want
+
+
+def test_roofline_prices_a_16_wide_model_axis_at_the_network_rate():
+    """The same collective bytes over "model" cost 18x as long on the
+    (16, 16) mesh as on (32, 8)."""
+    cell = dict(arch="mamba2-130m", shape="train_4k", chips=256,
+                costs=dict(flops=1.0, op_bytes=1.0,
+                           coll_bytes={"reduce-scatter": {"model": 9e11}}))
+    eight = troof.analyze_cell(dict(cell, mesh="32x8"))["t_collective"]
+    sixteen = troof.analyze_cell(dict(cell, mesh="16x16"))["t_collective"]
+    assert (eight, sixteen) == (1.0, 18.0)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((32, 8), "heads"), ((16, 16), "state"), ((1, 4), "heads"),
+    ((1, 1), "heads")])
+def test_mamba2_ssd_layout_on_each_mesh(shape, want):
+    """mamba2-130m's 24 heads divide 8 and 4, not 16; its N = 128 divides
+    16: the reference's pod runs the state layout."""
+    from repro_torch.models import recurrent as trec
+
+    _, pol = policies(shape, 256)
+    cfg = tarchs.ARCHS["mamba2-130m"]
+    assert trec.ssd_layout(cfg, pol) == want
+    spec = trec.ssd_state_spec(cfg, pol).h
+    assert spec[1] == ("model" if want == "heads" else None)
+    assert spec[3] == ("model" if want == "state" else None)
 
 
 @pytest.mark.parametrize("kind", ["prefill_32k", "decode_32k", "long_500k"])
