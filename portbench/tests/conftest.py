@@ -1,0 +1,9 @@
+"""The harness's tests: CPU at tiny sizes; those marked ``gpu`` decide
+inside the test whether a card is there."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
