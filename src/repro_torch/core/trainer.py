@@ -32,6 +32,18 @@ functions take process groups, as the reference takes mesh axes:
 ``data_group`` sums phi deltas and the likelihood's doc term over the
 document shards, ``model_group`` sums theta partials, phi_sum and the word
 term over the word shards (2d).  Without groups nothing changes.
+
+Phase spans (``tracer``, a ``repro_torch.obs.SpanTracer``; ``NULL_TRACER``
+by default, which records nothing): one ``lda.step`` a step, holding
+``lda.uniforms`` (the draw), ``lda.theta`` (theta from z, its sync and,
+under WorkSchedule2, each micro-chunk's ``theta_delta``), ``lda.ell``
+(theta -> ELL, each chunk's ``ell_topk``), ``lda.sweep`` (K1 or the dense
+sweep), ``lda.advance`` (K2, ``phi + delta``, phi_sum) and ``lda.sync``
+(the phi delta's all-reduce, or the wait on each pending one); over a mesh
+also ``lda.stats``.  ``log_likelihood`` opens ``lda.ll``.  All of them
+are siblings under ``lda.step``, in every schedule.  An annotating tracer
+makes each a profiler range (``obs/trace.py``), so a ``torch.profiler``
+trace ties every kernel to the phase that launched it.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ from repro_torch.core import dense_sampler, likelihood, sampler, sync, updates
 from repro_torch.core.corpus import Corpus, TiledCorpusShard, ell_capacity
 from repro_torch.kernels.lda_sample import ops as lda_ops
 from repro_torch.kernels.phi_update import ops as phi_ops
+from repro_torch.obs.trace import NULL_TRACER, SpanTracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,19 +198,21 @@ def state_from_numpy(cfg: LDAConfig, shard: TiledCorpusShard, z,
 
 
 def theta_and_ell(cfg: LDAConfig, shard: TiledCorpusShard, z,
-                  model_group=None):
+                  model_group=None, *, tracer: SpanTracer = NULL_TRACER):
     """Step 1 of an iteration: theta from z (summed over the word shards in
     2d) and its ELL slice, in int16 when K and the longest document allow
     (C7, ``updates.ell_dtype``).  ``shard.max_doc_length`` is a document's
     whole length: in 2d the ELL holds the model-group sum, which reaches it.
     Returns (theta, counts, topics, overflowed)."""
     K = cfg.num_topics
-    theta = sync.sync_theta(updates.theta_from_z(
-        z, shard.token_doc, shard.token_mask, shard.num_docs_local, K),
-        model_group)
+    with tracer.span("lda.theta"):
+        theta = sync.sync_theta(updates.theta_from_z(
+            z, shard.token_doc, shard.token_mask, shard.num_docs_local, K),
+            model_group)
     P = cfg.ell_capacity or min(K, shard.max_doc_length)
-    counts, topics, overflow = updates.theta_to_ell(
-        theta, min(P, K), updates.ell_dtype(K, shard.max_doc_length))
+    with tracer.span("lda.ell"):
+        counts, topics, overflow = updates.theta_to_ell(
+            theta, min(P, K), updates.ell_dtype(K, shard.max_doc_length))
     return theta, counts, topics, overflow
 
 
@@ -213,7 +228,8 @@ def _pad_tiles(arrays, n_pad: int):
 
 def lda_iteration(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
                   uniforms: torch.Tensor | None = None, *, data_group=None,
-                  model_group=None, heavy_rows: torch.Tensor | None = None
+                  model_group=None, heavy_rows: torch.Tensor | None = None,
+                  tracer: SpanTracer = NULL_TRACER
                   ) -> tuple[LDAState, IterStats]:
     """One full sweep over the shard's tokens, the phi advance and its sync.
 
@@ -230,35 +246,56 @@ def lda_iteration(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
     collective runs while the next chunk samples (which reads only the
     frozen iteration-start phi), and waits before the phi add; the sum is
     linear over the integers, so the state is the serialized sync's bit
-    for bit.  Launches work without synchronising the device."""
+    for bit.  Launches work without synchronising the device.
+
+    ``tracer`` records the step's phase spans under one ``lda.step`` (the
+    module docstring)."""
+    with tracer.span("lda.step", iteration=state.iteration):
+        return iteration_in_step(cfg, shard, state, uniforms,
+                                 data_group=data_group,
+                                 model_group=model_group,
+                                 heavy_rows=heavy_rows, tracer=tracer)
+
+
+def iteration_in_step(cfg: LDAConfig, shard: TiledCorpusShard,
+                      state: LDAState, uniforms: torch.Tensor | None = None,
+                      *, data_group=None, model_group=None,
+                      heavy_rows: torch.Tensor | None = None,
+                      tracer: SpanTracer = NULL_TRACER
+                      ) -> tuple[LDAState, IterStats]:
+    """``lda_iteration`` inside an ``lda.step`` span its caller has opened
+    (``DistributedLDA.step``, which adds its own phases to the step)."""
     K = cfg.num_topics
     alpha, beta = cfg.resolved_alpha(), cfg.beta
     n, t = state.z.shape
     M = cfg.micro_chunks
     n_pad = -n % M
     if uniforms is None:
-        uniforms = iteration_uniforms(cfg, state)
+        with tracer.span("lda.uniforms"):
+            uniforms = iteration_uniforms(cfg, state)
 
     theta, ell_c, ell_t, overflow = theta_and_ell(cfg, shard, state.z,
-                                                  model_group)
+                                                  model_group, tracer=tracer)
     v_total = shard.num_words_total or shard.num_words
     kw = dict(alpha=alpha, beta=beta, num_words_total=v_total)
     overlap = cfg.sync_overlap and M > 1 and data_group is not None
 
     def sync_delta(delta, async_op=False):
-        return sync.sync_phi_delta(delta, data_group, heavy_rows,
-                                   cfg.compressed_sync, async_op)
+        with tracer.span("lda.sync"):
+            return sync.sync_phi_delta(delta, data_group, heavy_rows,
+                                       cfg.compressed_sync, async_op)
 
     def sweep(tw, td, tm, zc, u, theta_c, cnts, tpcs, c):
-        if cfg.sampler == "sq":
-            return lda_ops.lda_sample(tw, td, tm, zc, state.phi_vk,
-                                      state.phi_sum, cnts, tpcs, u,
-                                      tiles_per_step=c, **kw)
-        zero = torch.zeros((), dtype=torch.float32, device=zc.device)
-        z_new = dense_sampler.sample_sweep_dense(
-            state.phi_vk, state.phi_sum, tw, td, tm, zc, theta_c, u,
-            tiles_per_step=c, **kw)
-        return z_new, sampler.SamplerStats(zero, zero)
+        with tracer.span("lda.sweep"):
+            if cfg.sampler == "sq":
+                return lda_ops.lda_sample(tw, td, tm, zc, state.phi_vk,
+                                          state.phi_sum, cnts, tpcs, u,
+                                          tiles_per_step=c, **kw)
+            zero = torch.zeros((), dtype=torch.float32, device=zc.device)
+            z_new = dense_sampler.sample_sweep_dense(
+                state.phi_vk, state.phi_sum, tw, td, tm, zc, theta_c, u,
+                tiles_per_step=c, **kw)
+            return z_new, sampler.SamplerStats(zero, zero)
 
     if M == 1:   # WorkSchedule1: one sweep over every tile
         z_new, st = sweep(shard.tile_word, shard.token_doc, shard.token_mask,
@@ -277,39 +314,51 @@ def lda_iteration(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
         z_parts, sfs, ssqs, pending = [], [], [], []
         for m in range(M):
             sl = slice(m * nc, (m + 1) * nc)
-            cnts, tpcs = updates.ell_topk(theta_c, P, ell_c.dtype)
+            with tracer.span("lda.ell"):
+                cnts, tpcs = updates.ell_topk(theta_c, P, ell_c.dtype)
             z_c, st = sweep(tw_a[sl], td_a[sl], tm_a[sl], z_a[sl],
                             uniforms[sl], theta_c, cnts, tpcs,
                             min(cfg.tiles_per_step, nc))
-            theta_c = theta_c + sync.sync_theta(updates.theta_delta(
-                z_a[sl], z_c, td_a[sl], tm_a[sl], theta_c.shape[0], K),
-                model_group)
+            with tracer.span("lda.theta"):
+                theta_c = theta_c + sync.sync_theta(updates.theta_delta(
+                    z_a[sl], z_c, td_a[sl], tm_a[sl], theta_c.shape[0], K),
+                    model_group)
             if overlap:   # this chunk's delta (K2 on its tiles), on the wire
-                pending.append(sync_delta(phi_ops.phi_delta(
-                    tw_a[sl], None, z_a[sl], z_c, tm_a[sl],
-                    num_words=shard.num_words, num_topics=K,
-                    segments=chunk_segs and chunk_segs[m]), async_op=True))
+                with tracer.span("lda.advance"):
+                    delta_c = phi_ops.phi_delta(
+                        tw_a[sl], None, z_a[sl], z_c, tm_a[sl],
+                        num_words=shard.num_words, num_topics=K,
+                        segments=chunk_segs and chunk_segs[m])
+                pending.append(sync_delta(delta_c, async_op=True))
             z_parts.append(z_c)
             sfs.append(st.sparse_frac)
             ssqs.append(st.mean_s_over_sq)
-        z_new = torch.cat(z_parts)[:n]
-        sparse_frac = torch.stack(sfs).mean()
-        mean_ssq = torch.stack(ssqs).mean()
+        with tracer.span("lda.sweep"):
+            z_new = torch.cat(z_parts)[:n]
+            sparse_frac = torch.stack(sfs).mean()
+            mean_ssq = torch.stack(ssqs).mean()
 
     if overlap:
-        phi = state.phi_vk
+        deltas = []
         for p in pending:
-            phi = phi + p.wait()
+            with tracer.span("lda.sync"):
+                deltas.append(p.wait())
     else:
         # incremental phi advance: one count pass over the sweep's moves
         # (K2 on a CUDA device), exact in integer arithmetic, then synced
-        delta = phi_ops.phi_delta(shard.tile_word, shard.tile_first,
-                                  state.z, z_new, shard.token_mask,
-                                  num_words=shard.num_words, num_topics=K,
-                                  segments=phi_ops.shard_segments(shard))
-        phi = state.phi_vk + sync_delta(delta)
-    new_state = LDAState(z=z_new, phi_vk=phi,
-                         phi_sum=sync.global_phi_sum(phi, model_group),
+        with tracer.span("lda.advance"):
+            delta = phi_ops.phi_delta(shard.tile_word, shard.tile_first,
+                                      state.z, z_new, shard.token_mask,
+                                      num_words=shard.num_words,
+                                      num_topics=K,
+                                      segments=phi_ops.shard_segments(shard))
+        deltas = [sync_delta(delta)]
+    with tracer.span("lda.advance"):
+        phi = state.phi_vk
+        for d in deltas:
+            phi = phi + d
+        phi_sum = sync.global_phi_sum(phi, model_group)
+    new_state = LDAState(z=z_new, phi_vk=phi, phi_sum=phi_sum,
                          iteration=state.iteration + 1)
     return new_state, IterStats(sparse_frac=sparse_frac,
                                 ell_overflow=overflow.sum(),
@@ -317,21 +366,23 @@ def lda_iteration(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
 
 
 def log_likelihood(cfg: LDAConfig, shard: TiledCorpusShard, state: LDAState,
-                   data_group=None, model_group=None) -> torch.Tensor:
+                   data_group=None, model_group=None, *,
+                   tracer: SpanTracer = NULL_TRACER) -> torch.Tensor:
     """Joint collapsed log-likelihood (Fig. 8 metric), 0-d float32.  Over a
     mesh: the doc term summed over the document shards, the word term from
     the phi this rank holds (the replica in 1d, summed over the word shards
-    in 2d), so every rank returns the whole."""
+    in 2d), so every rank returns the whole.  One ``lda.ll`` span."""
     alpha, beta = cfg.resolved_alpha(), cfg.beta
-    theta = sync.sync_theta(updates.theta_from_z(
-        state.z, shard.token_doc, shard.token_mask, shard.num_docs_local,
-        cfg.num_topics), model_group)
-    dterm = sync.maybe_all_reduce(
-        likelihood.doc_term(theta, shard.doc_length, alpha), data_group)
-    winner = sync.maybe_all_reduce(
-        likelihood.word_inner_term(state.phi_vk, beta), model_group)
-    return dterm + winner + likelihood.word_outer_term(
-        state.phi_sum, beta, shard.num_words_total or shard.num_words)
+    with tracer.span("lda.ll", iteration=state.iteration):
+        theta = sync.sync_theta(updates.theta_from_z(
+            state.z, shard.token_doc, shard.token_mask, shard.num_docs_local,
+            cfg.num_topics), model_group)
+        dterm = sync.maybe_all_reduce(
+            likelihood.doc_term(theta, shard.doc_length, alpha), data_group)
+        winner = sync.maybe_all_reduce(
+            likelihood.word_inner_term(state.phi_vk, beta), model_group)
+        return dterm + winner + likelihood.word_outer_term(
+            state.phi_sum, beta, shard.num_words_total or shard.num_words)
 
 
 @dataclasses.dataclass

@@ -46,6 +46,7 @@ from repro_torch.core.corpus import Corpus, partition_by_document, tile_shard
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.kernels.phi_update import ops as phi_ops
+from repro_torch.obs.trace import NULL_TRACER, SpanTracer
 
 # A word's per-iteration phi_delta entry is bounded by its corpus frequency,
 # so the int16 compressed sync (sync.compressed_sync_phi) is exact for every
@@ -365,12 +366,17 @@ class DistributedLDA:
 
     1d (paper): ``doc_axes`` = every mesh axis, ``word_axes=()``.
     2d:         ``doc_axes`` = e.g. ("data",), ``word_axes=("model",)``.
+
+    ``tracer`` records ``step``'s and ``log_likelihood``'s phase spans
+    (``core/trainer.py``'s module docstring), ``lda.stats`` among them.
     """
 
     def __init__(self, cfg: core_trainer.LDAConfig, mesh, corpus: Corpus,
                  mode: str = "1d", doc_axes: Sequence[str] | None = None,
-                 word_axes: Sequence[str] = ("model",), device=None):
+                 word_axes: Sequence[str] = ("model",), device=None,
+                 tracer: SpanTracer = NULL_TRACER):
         self.device = mesh_device(mesh, device)
+        self.tracer = tracer
         cfg = core_trainer.resolve_config(cfg, corpus)
         self.cfg = cfg
         self.mesh = mesh
@@ -435,26 +441,32 @@ class DistributedLDA:
         iteration, g) when not given.  Stats are the mesh's: mean sparse
         share and S/(S+Q) over the ranks, overflowed docs summed (counted
         once per document in 2d)."""
-        if uniforms is None:
-            uniforms = core_trainer.iteration_uniforms(self.cfg, state,
-                                                       self.rank)
-        st, stats = core_trainer.lda_iteration(
-            self.cfg, self.shard, state, uniforms,
-            heavy_rows=self.heavy_rows, **self._groups())
-        v = torch.stack([stats.sparse_frac.float(),
-                         stats.mean_s_over_sq.float(),
-                         stats.ell_overflow.float()])
-        sparse, ssq, over = sync.maybe_all_reduce(v, self.all_group).unbind()
-        return st, core_trainer.IterStats(
-            sparse_frac=sparse / self.num_shards,
-            ell_overflow=torch.floor_divide(over,
-                                            self.plan.num_word_shards),
-            mean_s_over_sq=ssq / self.num_shards)
+        tracer = self.tracer
+        with tracer.span("lda.step", iteration=state.iteration):
+            if uniforms is None:
+                with tracer.span("lda.uniforms"):
+                    uniforms = core_trainer.iteration_uniforms(
+                        self.cfg, state, self.rank)
+            st, stats = core_trainer.iteration_in_step(
+                self.cfg, self.shard, state, uniforms,
+                heavy_rows=self.heavy_rows, tracer=tracer, **self._groups())
+            with tracer.span("lda.stats"):
+                v = torch.stack([stats.sparse_frac.float(),
+                                 stats.mean_s_over_sq.float(),
+                                 stats.ell_overflow.float()])
+                sparse, ssq, over = sync.maybe_all_reduce(
+                    v, self.all_group).unbind()
+                return st, core_trainer.IterStats(
+                    sparse_frac=sparse / self.num_shards,
+                    ell_overflow=torch.floor_divide(
+                        over, self.plan.num_word_shards),
+                    mean_s_over_sq=ssq / self.num_shards)
 
     def log_likelihood(self, state) -> float:
         """Joint LL per token of the whole corpus (the same on every rank)."""
         return float(core_trainer.log_likelihood(
-            self.cfg, self.shard, state, **self._groups())) / self.num_tokens
+            self.cfg, self.shard, state, tracer=self.tracer,
+            **self._groups())) / self.num_tokens
 
     def restore(self, z_canon: np.ndarray, iteration: int):
         """Elastic restore: canonical z -> state on THIS mesh and partition,

@@ -67,8 +67,12 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="write one JSONL metrics row per training "
                          "iteration (tokens/sec, LL, sparse_frac, ...)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
-                    help="export host phase spans (compile/sample/eval) as "
-                         "Chrome trace JSON, viewable in Perfetto")
+                    help="export host phase spans as Chrome trace JSON, "
+                         "viewable in Perfetto: compile/sample/eval and, "
+                         "inside them, each step's lda.step, lda.uniforms, "
+                         "lda.theta, lda.ell, lda.sweep, lda.advance, "
+                         "lda.sync, lda.stats and lda.ll, stamped on the "
+                         "wall clock torch.profiler traces use")
     ap.add_argument("--host-devices", type=int, default=0,
                     help="spawn N local ranks (gloo with --device cpu, "
                          "NCCL on N cards otherwise)")

@@ -7,7 +7,7 @@ Three pieces, one bundle:
     Prometheus text exposition (``GET /metrics`` in ``launch/serve_lda``);
   * :mod:`repro_torch.obs.trace` — host phase-span tracing exported as Chrome
     trace-event JSON (Perfetto-loadable), optionally mirrored into
-    ``torch.profiler.record_function`` ranges;
+    ``torch.profiler`` ranges (a ``RecordFunction`` each);
   * :mod:`repro_torch.obs.sink` — per-iteration JSONL rows for training.
 
 :class:`Observability` carries a registry + tracer pair through the engine

@@ -5,10 +5,12 @@
   ``torch.distributed.device_mesh.DeviceMesh`` builds a ``DistributedLDA``
   partition (``mode``/``doc_axes``/``word_axes`` as in its constructor) and
   runs the same loop over its step, one process per rank.
-* Telemetry through ``repro_torch.obs``: per-iteration counters and latency
-  histograms, ``compile``/``sample``/``eval`` host spans and, with
-  ``metrics_out``, one JSONL row per iteration (rank 0's over a mesh) — all
-  host side, so draws are the same with or without it.
+* Telemetry through ``repro_torch.obs``: ``compile``/``sample``/``eval``
+  host spans, the step's phase spans inside ``sample`` and ``eval``
+  (``lda.step``, ``lda.theta``, ... and ``lda.ll``: ``core/trainer.py``'s
+  module docstring) and, with ``metrics_out``, one JSONL row per iteration
+  (rank 0's over a mesh) — all host side, so draws are the same with or
+  without it.
 * Warm-up timed apart as ``compile_sec``: the first iteration is run once
   from the starting state and thrown away (kernel build and load, allocator
   growth, the collectives' set-up), so every row of ``tokens_per_sec`` is a
@@ -71,7 +73,10 @@ def fit(
     checkpointing and the returned ``TrainResult`` are the same on both
     paths."""
     from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.obs import Observability
 
+    obs = obs if obs is not None else Observability.noop()
+    tracer = obs.tracer
     dev = resolve_device(device) if mesh is None else None
     mgr = fp = None
     if checkpoint_dir:
@@ -111,10 +116,10 @@ def fit(
                              "num_topics": cfg.num_topics})
 
     return _run_loop(
-        cfg, lambda st: trainer.lda_iteration(cfg, shard, st), dev,
-        shard.num_tokens, it0, num_iterations, state,
-        ll_fn=lambda st: float(trainer.log_likelihood(cfg, shard, st))
-        / corpus.num_tokens,
+        cfg, lambda st: trainer.lda_iteration(cfg, shard, st, tracer=tracer),
+        dev, shard.num_tokens, it0, num_iterations, state,
+        ll_fn=lambda st: float(trainer.log_likelihood(
+            cfg, shard, st, tracer=tracer)) / corpus.num_tokens,
         save_fn=save_fn if mgr is not None else None, **loop)
 
 
@@ -123,7 +128,8 @@ def _fit_mesh(corpus, cfg, num_iterations, mesh, *, mode, doc_axes,
     from repro_torch.distributed.partition import DistributedLDA
 
     dl = DistributedLDA(cfg, mesh, corpus, mode=mode, doc_axes=doc_axes,
-                        word_axes=word_axes, device=device)
+                        word_axes=word_axes, device=device,
+                        tracer=loop["obs"].tracer)
     lead = dl.rank == 0
     if latest is not None:
         it0, z, _ = latest
@@ -150,17 +156,9 @@ def _run_loop(cfg, step, dev, num_tokens, it0, num_iterations, state, *,
     device ``dev``; ``lead`` (rank 0 over a mesh) prints and writes the
     metrics rows.  Every rank evaluates and checkpoints at the same
     iterations, as those are collectives."""
-    from repro_torch.obs import NULL_SINK, JsonlSink, Observability
+    from repro_torch.obs import NULL_SINK, JsonlSink
 
-    obs = obs if obs is not None else Observability.default(trace=False)
-    reg, tracer = obs.registry, obs.tracer
-    m_iters = reg.counter("repro_train_iterations_total", "sweeps completed")
-    m_tokens = reg.counter("repro_train_tokens_sampled_total",
-                           "tokens resampled (iterations * corpus tokens)")
-    m_iter_ms = reg.histogram("repro_train_iteration_ms",
-                              "wall time per training iteration")
-    g_tps = reg.gauge("repro_train_tokens_per_sec", "last iteration's rate")
-    g_ll = reg.gauge("repro_train_ll_per_token", "last evaluated joint LL")
+    tracer = obs.tracer
     sink = JsonlSink(metrics_out) if metrics_out and lead else NULL_SINK
 
     # warm-up: the first iteration once, thrown away
@@ -185,16 +183,11 @@ def _run_loop(cfg, step, dev, num_tokens, it0, num_iterations, state, *,
             tps.append(num_tokens / dt)
             st.append((float(stats.sparse_frac), float(stats.ell_overflow),
                        float(stats.mean_s_over_sq)))
-            m_iters.inc()
-            m_tokens.inc(num_tokens)
-            m_iter_ms.observe(dt * 1e3)
-            g_tps.set(tps[-1])
             ll = None
             if (it + 1) % eval_every == 0 or it == num_iterations - 1:
                 with tracer.span("eval", iteration=it):
                     ll = float(ll_fn(state))
                 lls.append(ll)
-                g_ll.set(ll)
                 if verbose and lead:
                     print(f"iter {it + 1:5d}  {tps[-1] / 1e6:7.2f}M tok/s  "
                           f"LL/token {ll:.4f}  "

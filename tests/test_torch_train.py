@@ -384,9 +384,24 @@ def test_fit_telemetry_and_metrics_rows(tmp_path):
     rows = [json.loads(x) for x in out.read_text().splitlines()]
     assert [r["iteration"] for r in rows] == [0, 1, 2]
     assert rows[0]["ll_per_token"] is None and rows[1]["ll_per_token"]
-    assert obs.registry.counter("repro_train_iterations_total").value == 3
-    names = {e["name"] for e in obs.tracer.to_chrome()["traceEvents"]}
-    assert {"compile", "sample", "eval"} <= names
+    spans = [e for e in obs.tracer.to_chrome()["traceEvents"]
+             if e["ph"] == "X"]
+    assert {"compile", "sample", "eval"} <= {e["name"] for e in spans}
+
+    def inside(outer):      # the spans that lie within each ``outer`` span
+        return [[e["name"] for e in spans if e["name"].startswith("lda.")
+                 and o["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                 <= o["ts"] + o["dur"]]
+                for o in spans if o["name"] == outer]
+
+    # every step's phases inside its sample span, the likelihood's in eval
+    samples = inside("sample")
+    assert len(samples) == 3
+    for names in samples:
+        assert names.count("lda.step") == 1
+        assert {"lda.uniforms", "lda.theta", "lda.ell", "lda.sweep",
+                "lda.advance", "lda.sync"} <= set(names)
+    assert inside("eval") == [["lda.ll"], ["lda.ll"]]
     assert len(res.ll_per_token) == 2
 
 
