@@ -54,19 +54,23 @@ D = 299,752 docs, V = 101,636, ~99.5M tokens, Zipf 1.1):
 8. the sweep kernel (K1) against its plain version: one sweep from the
    initial state and the same uniforms on the heaviest word's first 1024
    tiles and the last 1024 (tail) tiles, at full K and V, on the ELL the
-   trainer builds (``trainer.theta_and_ell``);
+   trainer builds (``trainer.theta_and_ell``); that ELL, the ELL kernel's
+   output, against its plain version on the same theta (``ell_vs_plain``);
 9. the count kernels (K2 phi delta, K4 phi rebuild) against their plain
    versions at full V x K, after one full-width K1 sweep, K4 also into
    memory the allocator has just freed from a tensor of -1 (a row K4
    neither writes whole nor zeroes shows there);
-10. K1, K2 and K4 times at full width (``time_ms``, 20 launches; the
-    plain K1 3), each with its bound and, for K2 and K4, one
+10. K1, K2, K4 and the ELL kernel times at full width (``time_ms``, 20
+    launches; the plain K1 3, the plain ELL 5), each with its bound and,
+    for K2 and K4, one
     ``index_add_`` as the library yardstick; K1 also with the bytes its
     design moves (``k1_design``: runs, mean run length, design bytes and
     the rate they were moved at);
 11. the training main path: ``fit(corpus, CONFIG, 10)`` on cuda:0 with
     eval every iteration, then K4 rebuilds phi from the final z; the K1,
-    K2 and K4 counters are read around both; then one more iteration
+    K2, K4 and ELL counters are read around both; the trained theta's ELL
+    against its plain version again, and the kernel timed on it
+    (``train_ell_timing``); then one more iteration
     between a reset and a read of the card's peak (``train_step_memory``,
     not counted: the dry run's ``--lda-card-run`` reckons its peak);
 12. K1 against its plain version again, on the trained state (the same
@@ -240,6 +244,9 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
   within 1e-3 absolute;
 * K2 and K4: equal to their plain versions (integer counts, exact), K4
   also into memory last filled with -1, and phi_old + K2 == K4(z_new);
+* the ELL kernel, on the initial and the trained theta (and PubMed's
+  initial one): equal to its plain version bit for bit (counts, topics
+  with their padding, the overflow flag);
 * serving: every theta sums to 1 (atol 1e-4), the planted major topic is
   recovered on >= 90% of documents in every burst, every answer after the
   swap carries the new model version, and K3 was launched;
@@ -251,7 +258,8 @@ order than torch.cumsum's, so a draw on a float boundary may flip):
   equal to the model's, and the flipped byte refused
   (``SnapshotIntegrityError``);
 * training: K1 and K2 launched once per iteration plus once for fit's
-  warm-up iteration, the last LL/token above the first, phi == K4(z)
+  warm-up iteration, the ELL kernel at least as often, the last LL/token
+  above the first, phi == K4(z)
   exactly, phi_sum == phi.sum(0), phi.sum() == number of tokens, every z
   in [0, K);
 * PubMed: as training (K1's flips <= 1e-3, K2 and K4 exact, K1 and K2
@@ -333,7 +341,7 @@ from repro_torch.launch.mesh import (  # noqa: E402  (H100 SXM data sheet)
 
 INT32_OPS = FP32_FLOPS / 2     # Hopper SM: 64 INT32 lanes to 128 FP32 lanes
 
-KERNELS = ("fold_in", "lda_sample", "phi_update")
+KERNELS = ("fold_in", "lda_sample", "phi_update", "ell_select")
 TRAIN_FLIP_RATE = 1e-3
 TRAIN_STAT_ATOL = 1e-3
 CMP_TILES = 1024               # heaviest-word tiles and tail tiles each
@@ -674,6 +682,37 @@ def bound(nbytes, ops, ops_rate):
     return dict(bytes=nbytes, ops=ops, bytes_ms=b_ms, ops_ms=o_ms,
                 bound_ms=max(b_ms, o_ms),
                 bound_by="bytes" if b_ms >= o_ms else "operations")
+
+
+def ell_vs_plain(theta, P: int, dtype, state: str) -> int:
+    """The ELL kernel (``updates.theta_to_ell`` on the card) against its
+    plain version on the same (D, K) theta; returns the largest absolute
+    difference over counts, topics and the overflow flag, and raises on
+    any: the two are equal bit for bit, padding included."""
+    import torch
+
+    from repro_torch.core import updates
+    from repro_torch.kernels.ell_select import ref as ell_ref
+
+    got = updates.theta_to_ell(theta, P, dtype)
+    want = ell_ref.theta_to_ell_ref(theta, P, dtype)
+    err = max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
+    emit("ell_vs_plain", state=state, docs=theta.shape[0], P=P,
+         dtype=str(dtype), max_nnz=int((theta > 0).sum(1).max()),
+         max_count=int(theta.max()),
+         docs_over_127=int((theta.amax(1) > 127).sum()),
+         overflowed=int(got[2].sum()), max_abs_err=err)
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"the ELL kernel differs from its plain version "
+                             f"on the {state} theta: {err}")
+    return err
+
+
+def ell_bytes(theta, P: int, dtype) -> int:
+    """The ELL kernel's least traffic: theta read once, counts and topics
+    (D, P) and the (D,) flag written once."""
+    D, K = theta.shape
+    return D * K * 4 + D * min(P, K) * 2 * dtype.itemsize + D
 
 
 def k1_vs_plain(full, kw, state: str) -> float:
@@ -1066,7 +1105,8 @@ def pubmed_phase(card: str, scale: float, iters: int, counters,
                  device="cuda:0") -> tuple[dict, int, int, float]:
     """Phase 17: ``configs/lda_pubmed.CONFIG`` on ``lda_pubmed.scaled(scale)``
     at full width (V = 141,043, K = 1024): host preparation, K1, K2 and K4
-    against their plain versions on this tiling, ``fit`` for ``iters``
+    and the ELL kernel against their plain versions on this tiling, ``fit``
+    for ``iters``
     iterations (the launches read around it), phi == K4(z), the step
     breakdown on the final state, and the peak device memory of the phase.
     Returns (the launches of its main path, K2's and K4's max abs error,
@@ -1110,9 +1150,11 @@ def pubmed_phase(card: str, scale: float, iters: int, counters,
     if V != lda_pubmed.FULL["num_words"] or K != lda_pubmed.NUM_TOPICS:
         raise AssertionError(f"PubMed is not at full width: V={V}, K={K}")
 
-    # K1, K2 and K4 against their plain versions on this tiling
+    # K1, K2, K4 and the ELL against their plain versions on this tiling
     state0 = trainer.init_state(cfg, shard)
-    _, ell_c, ell_t, _ = trainer.theta_and_ell(cfg, shard, state0.z)
+    theta0, ell_c, ell_t, _ = trainer.theta_and_ell(cfg, shard, state0.z)
+    ell_vs_plain(theta0, P, ell, "pubmed-initial")
+    del theta0
     live0 = k1_ops.live_lengths(ell_c)
     uni = draw_sweep_uniforms(trainer.iteration_generator(cfg, 0, dev), n, t)
     full = (shard.tile_word, shard.token_doc, shard.token_mask, state0.z,
@@ -1150,9 +1192,11 @@ def pubmed_phase(card: str, scale: float, iters: int, counters,
          total_memory=torch.cuda.get_device_properties(dev).total_memory)
     if launches["lda_sample_tiles"] != iters + 1 or \
             launches["phi_delta_tiles"] != iters + 1 or \
-            launches["phi_update_tiles"] < 1:
+            launches["phi_update_tiles"] < 1 or \
+            launches["ell_select"] < iters + 1:
         raise AssertionError(f"PubMed: K1/K2 not launched once per iteration"
-                             f" (+1 warm-up) or K4 never: {launches}")
+                             f" (+1 warm-up), the ELL kernel less often, or "
+                             f"K4 never: {launches}")
     if not res.ll_per_token[-1] > res.ll_per_token[0]:
         raise AssertionError(f"PubMed LL/token did not rise: "
                              f"{res.ll_per_token}")
@@ -2868,7 +2912,8 @@ def lm_serve_four(card: str, jobs=("qwen", "gemma"), rank_fn=None,
 
 def train_phases(card: str, scale: float, iters: int,
                  device="cuda:0") -> list[dict]:
-    """Phases 7-14; returns the kernels-line rows of K1, K2 and K4."""
+    """Phases 7-15; returns the kernels-line rows of K1, K2, K4 and the
+    ELL kernel."""
     import numpy as np
     import torch
 
@@ -2877,6 +2922,8 @@ def train_phases(card: str, scale: float, iters: int,
     from repro_torch.core.corpus import tile_corpus
     from repro_torch.core.sampler import draw_sweep_uniforms, pick_search_block
     from repro_torch.data.synthetic import nytimes_like
+    from repro_torch.kernels.ell_select import kernel as ell
+    from repro_torch.kernels.ell_select import ref as ell_ref
     from repro_torch.kernels.lda_sample import kernel as k1
     from repro_torch.kernels.lda_sample import ops as k1_ops
     from repro_torch.kernels.lda_sample import ref as k1_ref
@@ -2920,9 +2967,11 @@ def train_phases(card: str, scale: float, iters: int,
          k2_segment_tiles=k24.segment_tiles(), k2_table_s=t_seg,
          k4_rows_to_zero=int(rows.shape[0]), k4_rows_s=t_rows)
 
-    # -- 8. K1 against its plain version on heavy + tail tiles ---------------
+    # -- 8. K1 against its plain version on heavy + tail tiles; the ELL -----
     state0 = trainer.init_state(cfg, shard)
-    _, ell_c, ell_t, _ = trainer.theta_and_ell(cfg, shard, state0.z)
+    theta0, ell_c, ell_t, _ = trainer.theta_and_ell(cfg, shard, state0.z)
+    ell_dt = ell_c.dtype
+    ell_err = ell_vs_plain(theta0, P, ell_dt, "initial")
     live0 = k1_ops.live_lengths(ell_c)
     uni = draw_sweep_uniforms(trainer.iteration_generator(cfg, 0, dev), n, t)
     full = (shard.tile_word, shard.token_doc, shard.token_mask, state0.z,
@@ -2970,16 +3019,21 @@ def train_phases(card: str, scale: float, iters: int,
         **bound(*count_bytes_and_ops(n, t, z1.element_size(), V, K, real_tok,
                                      False, table_bytes(seg, rows)),
                 INT32_OPS))
+    timing["ell"] = dict(
+        ms=time_ms(lambda: updates.theta_to_ell(theta0, P, ell_dt)),
+        plain_ms=time_ms(lambda: ell_ref.theta_to_ell_ref(theta0, P, ell_dt),
+                         n=5, warm=1),
+        **bound(ell_bytes(theta0, P, ell_dt), 0, INT32_OPS))
     group = k1.tiles_per_cta()
     emit("train_timing", card=card, state="initial", **timing,
          k1_design=k1_design(full, timing["k1"]["ms"], group))
     del words, new_flat, old_flat, ones, idx2, val2, z1, sp1, uni, full
-    del state0, ell_c, ell_t, live0
+    del state0, theta0, ell_c, ell_t, live0
     torch.cuda.empty_cache()
 
     # -- 11. the training main path ------------------------------------------
     counters = (k1.lda_sample_tiles, k24.phi_delta_tiles,
-                k24.phi_update_tiles)
+                k24.phi_update_tiles, ell.ell_select)
     for f in counters:
         f.launches = 0
     t0 = time.perf_counter()
@@ -3005,6 +3059,8 @@ def train_phases(card: str, scale: float, iters: int,
                              f"warm-up): {launches}")
     if launches["phi_update_tiles"] < 1:
         raise AssertionError("K4 was not launched on the training path")
+    if launches["ell_select"] < iters + 1:
+        raise AssertionError(f"the ELL kernel missed an iteration: {launches}")
     if not res.ll_per_token[-1] > res.ll_per_token[0]:
         raise AssertionError(f"LL/token did not rise: {res.ll_per_token}")
     if not torch.equal(st.phi_vk, rebuilt):
@@ -3016,6 +3072,11 @@ def train_phases(card: str, scale: float, iters: int,
     if not bool(((st.z >= 0) & (st.z < K)).all()):
         raise AssertionError("a topic assignment is outside [0, K)")
     del rebuilt
+    theta1 = trainer.theta_and_ell(cfg, shard, st.z)[0]
+    ell_err = max(ell_err, ell_vs_plain(theta1, P, ell_dt, "trained"))
+    emit("train_ell_timing", card=card, state="trained", ms=time_ms(
+        lambda: updates.theta_to_ell(theta1, P, ell_dt)))
+    del theta1
     emit("train_step_memory", card=card,
          **step_memory(cfg, shard, st, seg, rows, dev))
 
@@ -3052,6 +3113,8 @@ def train_phases(card: str, scale: float, iters: int,
         row("phi_update_tiles", ks + "phi_update/csrc/phi_update.cu",
             "src/repro/kernels/phi_update/kernel.py:112", "k4", k4_err,
             launches["phi_update_tiles"]),
+        row("ell_select", ks + "ell_select/csrc/ell_select.cu", "none",
+            "ell", ell_err, launches["ell_select"]),
     ]
 
 
@@ -3470,10 +3533,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 17. PubMed at full width ------------------------------------------
+    from repro_torch.kernels.ell_select import kernel as ell
     from repro_torch.kernels.lda_sample import kernel as k1
     from repro_torch.kernels.phi_update import kernel as k24
     train_counters = (k1.lda_sample_tiles, k24.phi_delta_tiles,
-                      k24.phi_update_tiles)
+                      k24.phi_update_tiles, ell.ell_select)
     pm_launches, k2_err, k4_err, k1_err = pubmed_phase(
         card, PUBMED_SCALE, PUBMED_ITERS, train_counters)
     torch.cuda.empty_cache()
@@ -3483,7 +3547,8 @@ def main() -> int:
                                  + train_counters)
     k3_row["launches"] += ex_launches["fold_in_docs"]
     errs = dict(lda_sample_tiles=k1_err, phi_delta_tiles=k2_err,
-                phi_update_tiles=k4_err)
+                phi_update_tiles=k4_err,
+                ell_select=0)   # phase 17's ELL check raises on a difference
     for row in train_rows:
         row["launches"] += pm_launches[row["name"]] + ex_launches[row["name"]]
         row["max_abs_err"] = max(row["max_abs_err"], errs[row["name"]])

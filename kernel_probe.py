@@ -31,6 +31,13 @@ and the phi-rebuild kernel K4 (``phi_update.cu``) and the fold-in kernel K3
                                                 # (1, 4) and gemma2-27b's
                                                 # long_500k on (2, 2), each
                                                 # gated against one card
+    python3 kernel_probe.py --ell               # the ELL kernel against
+                                                # its plain version at
+                                                # NYTimes' and PubMed's
+                                                # shapes, on random, prior
+                                                # and few-topic thetas:
+                                                # bit for bit, and each
+                                                # one's time
     python3 kernel_probe.py --lm-ssd-four       # phase 27, then the SSD
                                                 # over four cards: the
                                                 # N-sharded state layout
@@ -421,6 +428,100 @@ def serve_sharded(n: int) -> int:
             rows=rows, parts_on_cuda0=parts)
     print(card, flush=True)
     return 0
+
+
+ELL_SHAPES = (  # (cell, documents, K, mean length, P) as the benchmark's
+    ("nytimes", 299_752, 1024, 332, 512),
+    ("pubmed", 2_050_000, 1024, 90, 256))
+# (name, Dirichlet alpha of a document's topic mixture; None: topics drawn
+# uniformly, as the trainer's first step has them).  The configs' prior,
+# alpha = 50 / K, spreads a document over ~100 topics; alpha / 50 gathers
+# it on ~6, as training does, so that NYTimes' documents hold counts of
+# 128 and more (the kernel's path for counts past its histogram).
+ELL_TRAFFIC = (("random", None), ("prior", 50 / 1024),
+               ("few_topics", 1 / 1024))
+ELL_DOC_BLOCK = 1 << 18        # documents drawn at a time
+
+
+def ell_theta(D: int, K: int, mean: float, alpha, seed: int, dev):
+    """(D, K) int32 counts of Poisson(mean) documents whose tokens take
+    topics uniformly (``alpha`` None) or from a Dirichlet(alpha) mixture of
+    their own."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.poisson(torch.full((D,), float(mean), device=dev),
+                            generator=g).to(torch.int64)
+    theta = torch.zeros((D, K), dtype=torch.int32, device=dev)
+    if alpha is None:
+        doc = torch.repeat_interleave(torch.arange(D, device=dev), lengths)
+        z = torch.randint(0, K, doc.shape, device=dev, generator=g)
+        theta.view(-1).index_add_(0, doc * K + z,
+                                  torch.ones_like(z, dtype=torch.int32))
+        return theta
+    L = int(lengths.max())
+    for d in range(0, D, ELL_DOC_BLOCK):
+        m = min(ELL_DOC_BLOCK, D - d)
+        mix = torch._standard_gamma(
+            torch.full((m, K), alpha, device=dev), generator=g)
+        cdf = mix.cumsum(1)
+        cdf /= cdf[:, -1:]
+        u = torch.rand((m, L), device=dev, generator=g)
+        z = torch.searchsorted(cdf, u, right=True).clamp_(max=K - 1)
+        live = torch.arange(L, device=dev) < lengths[d:d + m, None]
+        theta[d:d + m].scatter_add_(1, z, live.to(torch.int32))
+        del mix, cdf, u, z, live
+    return theta
+
+
+def ell_probe() -> int:
+    """The ELL kernel (``kernels/ell_select``) at NYTimes' and PubMed's
+    shapes, int16, on three thetas each (``ELL_TRAFFIC``): bit for bit
+    against the plain version on the card, the kernel's and the plain
+    version's device times (``chip_smoke.time_ms``), and the kernel's bound
+    by bytes (theta read once, the ELL and its flag written once)."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ell_select import kernel as ell
+    from repro_torch.kernels.ell_select import ref as ell_ref
+
+    if not torch.cuda.is_available():
+        print("kernel_probe: no CUDA card visible; nothing was run",
+              file=sys.stderr)
+        return 2
+    card = cs.card_line()
+    dev = torch.device("cuda:0")
+    _, log = _build.build("ell_select")
+    cs.emit("ell_build", ptxas=[ln.strip() for ln in log.splitlines()
+                                if "registers" in ln or "spill" in ln])
+    ok = True
+    for cell, D, K, mean, P in ELL_SHAPES:
+        for traffic, alpha in ELL_TRAFFIC:
+            theta = ell_theta(D, K, mean, alpha, D, dev)
+            got = ell.ell_select(theta, P, torch.int16)
+            want = ell_ref.theta_to_ell_ref(theta, P, torch.int16)
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            ok = ok and equal
+            del got, want
+            kernel_ms = cs.time_ms(
+                lambda: ell.ell_select(theta, P, torch.int16))
+            plain_ms = cs.time_ms(
+                lambda: ell_ref.theta_to_ell_ref(theta, P, torch.int16),
+                n=5, warm=1)
+            peak = theta.amax(1)
+            cs.emit("ell", card=card, cell=cell, traffic=traffic,
+                    alpha=alpha, docs=D, K=K, P=P, equal=equal,
+                    max_nnz=int((theta > 0).sum(1).max()),
+                    max_count=int(peak.max()),
+                    docs_over_127=int((peak > 127).sum()),
+                    kernel_ms=kernel_ms, plain_ms=plain_ms,
+                    bound_ms=cs.ell_bytes(theta, P, torch.int16)
+                    / cs.HBM_BYTES_PER_S * 1e3,
+                    rows_per_block=ell.rows_per_block(K, P, torch.int16))
+            del theta, peak
+            torch.cuda.empty_cache()
+    return 0 if ok else 1
 
 
 def pubmed_memory(scales) -> int:
@@ -1092,6 +1193,8 @@ def main() -> int:
 
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-ssd-four":
         return lm_ssd_four_probe()
+    if len(sys.argv) == 2 and sys.argv[1] == "--ell":
+        return ell_probe()
 
     if len(sys.argv) == 2 and sys.argv[1] == "--lm-serve-four":
         return lm_serve_four_probe()

@@ -82,7 +82,7 @@ DECLARED: dict[tuple[str, str, str], str] = {
         "topic-id-fits-dtype",
     ("src/repro_torch/core/trainer.py", "state_from_numpy", "DT001"):
         "topic-id-fits-dtype",
-    ("src/repro_torch/core/updates.py", "ell_topk", "DT001"):
+    ("src/repro_torch/core/updates.py", "ell_topk_plain", "DT001"):
         "topic-id-fits-dtype",
     ("src/repro_torch/core/sampler.py", "sample_tiles", "DT001"):
         "topic-id-fits-dtype",
@@ -93,8 +93,9 @@ DECLARED: dict[tuple[str, str, str], str] = {
     ("src/repro_torch/kernels/phi_update/ops.py", "_args", "DT001"):
         "topic-id-fits-dtype",
     # the ELL (counts and topics) in updates.ell_dtype: int16 only where K
-    # and the longest document fit
-    ("src/repro_torch/core/updates.py", "ell_topk", "DT001"):
+    # and the longest document fit (the plain ELL's casts; the CUDA kernel
+    # writes the same type from int32 counts)
+    ("src/repro_torch/core/updates.py", "ell_topk_plain", "DT001"):
         "ell-fits-dtype",
     # the int16 byte wire (the delta cast to int16, its uint8 views):
     # exact below the flux bound, int32 heavy-row path above it — the
@@ -559,6 +560,7 @@ CUDA_SOURCES = {
     "lda_sample": "src/repro_torch/kernels/lda_sample/csrc/lda_sample.cu",
     "phi_update": "src/repro_torch/kernels/phi_update/csrc/phi_update.cu",
     "fold_in": "src/repro_torch/kernels/fold_in/csrc/fold_in.cu",
+    "ell_select": "src/repro_torch/kernels/ell_select/csrc/ell_select.cu",
 }
 # a product of an index and one of these dims, read off the source
 _CU_PRODUCT = re.compile(
@@ -593,6 +595,10 @@ def cuda_offset_bounds(dims: dict) -> dict[str, dict[str, int]]:
             "(int64_t)b * K": B * K,                # theta out
             "buf * K": 2 * K,                       # shared: two buffers
             "(buf ^ 1) * K": 2 * K,
+        },
+        "ell_select": {
+            "row * K": D * K,                       # row is int64_t
+            "row * P": D * P,
         },
     }
 
@@ -649,8 +655,9 @@ def _int64_names(source: str) -> set[str]:
 
 
 def _w_cuda_offsets(root: Path) -> list[str]:
-    """Every flat device-memory offset of K1-K4 at ``FULL`` dims of both
-    configs either fits int32 or is formed in int64."""
+    """Every flat device-memory offset of K1-K4 and the ELL kernel at
+    ``FULL`` dims of both configs either fits int32 or is formed in
+    int64."""
     gs = _corpora()
     dims = dict(docs=max(g.num_docs for g in gs),
                 words=max(g.num_words for g in gs),

@@ -1,10 +1,13 @@
 """Count-matrix updates: exact int32 scatter-adds, and the ELL slice of theta.
 
 phi is stored **word-major**, shape (V, K), as in ``repro.core.updates``.
-Every function here is plain PyTorch; the count kernels of the training
+The scatter-adds here are plain PyTorch; the count kernels of the training
 path (phi's per-iteration delta and its full rebuild) live in
-``repro_torch.kernels.phi_update``.  The functions an iteration runs cut
-and write blocks with ``narrow`` and ``fill_block``, not with Python
+``repro_torch.kernels.phi_update``.  The ELL of theta (``ell_topk``,
+``theta_to_ell``) dispatches on the device: CUDA tensors go to the kernel
+in ``repro_torch.kernels.ell_select``, CPU tensors to the plain stable
+sort here (``ell_topk_plain``, ``theta_to_ell_plain``).  The functions an iteration runs
+cut and write blocks with ``narrow`` and ``fill_block``, not with Python
 indexing or ``Tensor.copy_``: the dry run (``launch/dryrun.py``) traces
 the iteration on fake ``cuda`` tensors on a CPU-only build of torch,
 whose Python bindings for those take a CUDA device guard and raise.
@@ -12,6 +15,8 @@ whose Python bindings for those take a CUDA device guard and raise.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.ell_select import kernel as ell_kernel
 
 
 def _scatter_counts(rows: torch.Tensor, z: torch.Tensor, inc: torch.Tensor,
@@ -89,27 +94,38 @@ def ell_dtype(num_topics: int, max_doc_length: int) -> torch.dtype:
     return torch.int16 if fits else torch.int32
 
 
-# Rows a block of the passes over a dense (D, K) theta (the ELL's sort, its
-# non-zero count, the likelihood's doc term): the sort's int64 keys, sorted
-# keys and indices take 24 bytes a (doc, topic), a bool sum or a float32
-# lgamma 8 or 12, which at PubMed's D = 8.2M docs and K = 1024 would be
-# 100-200 GB; a block of 2^16 rows bounds each at 1.6 GB.
+# Rows a block of the plain PyTorch passes over a dense (D, K) theta (the
+# plain ELL's sort and non-zero count, the likelihood's doc term): the
+# sort's int64 keys, sorted keys and indices take 24 bytes a (doc, topic), a
+# bool sum or a float32 lgamma 8 or 12, which at PubMed's D = 8.2M docs and
+# K = 1024 would be 100-200 GB; a block of 2^16 rows bounds each at 1.6 GB.
 THETA_ROW_BLOCK = 1 << 16
 
 
 def ell_topk(theta: torch.Tensor, capacity: int, dtype=torch.int32):
     """Dense counts (..., K) -> ELL ``(counts, topics)`` (..., P) of
-    ``dtype`` (int32 unless asked; the cast is the one pass that writes
-    them).
+    ``dtype`` (int32 unless asked), P = min(capacity, K).
 
     The order of ``jax.lax.top_k``: count descending, ties to the lower
-    topic id, zero counts last in id order — a *stable* sort on -count.
-    ``torch.topk`` breaks ties in another order, which would reorder the
-    sparse prefix sum and change draws, so it is not used.  The rows are
-    sorted ``THETA_ROW_BLOCK`` at a time (each row's order is its own, so
-    the ELL is the same), which bounds the sort's temporaries.  The blocks
-    are cut with ``narrow`` and written with ``fill_block``, not with
-    Python indexing (module docstring)."""
+    topic id, zero counts last in id order.  ``torch.topk`` breaks ties in
+    another order, which would reorder the sparse prefix sum and change
+    draws, so it is not used.  On the card one kernel launch gives every
+    row (``kernels/ell_select``, int32 contiguous theta); on the CPU
+    ``ell_topk_plain``.  Both give the same output."""
+    if theta.device.type == "cuda":
+        counts, topics, _ = ell_kernel.ell_select(theta, capacity, dtype)
+        return counts, topics
+    return ell_topk_plain(theta, capacity, dtype)
+
+
+def ell_topk_plain(theta: torch.Tensor, capacity: int, dtype=torch.int32):
+    """``ell_topk`` in plain PyTorch on any device: a *stable* sort on
+    -count, its indices and gathered counts cast to ``dtype`` (the cast is
+    the one pass that writes them).  The rows are sorted
+    ``THETA_ROW_BLOCK`` at a time (each row's order is its own, so the ELL
+    is the same), which bounds the sort's temporaries.  The blocks are cut
+    with ``narrow`` and written with ``fill_block``, not with Python
+    indexing (module docstring)."""
     K = theta.shape[-1]
     capacity = min(capacity, K)
     flat = theta.reshape(-1, K)
@@ -129,13 +145,23 @@ def ell_topk(theta: torch.Tensor, capacity: int, dtype=torch.int32):
 
 
 def theta_to_ell(theta: torch.Tensor, capacity: int, dtype=torch.int32):
-    """Dense theta -> ELL: (counts (D, P), topics (D, P), both of ``dtype``,
+    """Dense theta (D, K) -> ELL (counts (D, P), topics (D, P),
     overflowed (D,) bool).
 
     Rows with more than ``capacity`` non-zeros are flagged; callers either
     guarantee capacity >= max K_d (exact mode) or route flagged docs to the
-    dense sampler.  Padding entries have count 0 and add 0 to p1."""
-    counts, topics = ell_topk(theta, capacity, dtype)
+    dense sampler.  Padding entries have count 0 and add 0 to p1.  On the
+    card one kernel launch writes all three (``ell_topk``)."""
+    if theta.device.type == "cuda":
+        return ell_kernel.ell_select(theta, capacity, dtype)
+    return theta_to_ell_plain(theta, capacity, dtype)
+
+
+def theta_to_ell_plain(theta: torch.Tensor, capacity: int,
+                       dtype=torch.int32):
+    """``theta_to_ell`` in plain PyTorch on any device: ``ell_topk_plain``
+    and a count of each row's non-zeros."""
+    counts, topics = ell_topk_plain(theta, capacity, dtype)
     flat = theta.reshape(-1, theta.shape[-1])
     rows = flat.shape[0]
     over = torch.empty(rows, dtype=torch.bool, device=theta.device)

@@ -629,11 +629,12 @@ def test_training_wrappers_reject_bad_inputs(dev):
 
 def test_fit_on_cuda_launches_training_kernels(dev):
     """fit on cuda:0: K1 and K2 launch once per iteration (plus the warm-up
-    iteration), the sweep runs under the sync guard, and the counts stay
-    exact."""
+    iteration), the ELL kernel at least as often, the sweep runs under the
+    sync guard, and the counts stay exact."""
     from repro_torch.core import trainer, updates
     from repro_torch.core.corpus import tile_corpus
     from repro_torch.data.synthetic import lda_corpus
+    from repro_torch.kernels.ell_select import kernel as ell
     from repro_torch.kernels.lda_sample import kernel as k1
     from repro_torch.kernels.phi_update import kernel as k24
     from repro_torch.kernels.phi_update import ops as phi_ops
@@ -643,9 +644,11 @@ def test_fit_on_cuda_launches_training_kernels(dev):
                         avg_doc_len=40, seed=2)
     cfg = trainer.LDAConfig(num_topics=16, tile_tokens=32)
     k1.lda_sample_tiles.launches = k24.phi_delta_tiles.launches = 0
+    ell.ell_select.launches = 0
     res = fit(corpus, cfg, 3, device=dev, sanitize=True)
     assert k1.lda_sample_tiles.launches == 4
     assert k24.phi_delta_tiles.launches == 4
+    assert ell.ell_select.launches >= 4      # the ELL of every iteration
     st = res.state
     assert st.z.device.type == "cuda" and st.z.dtype == torch.int16
     shard = tile_corpus(corpus, 1, 32)[0].to(dev)
@@ -694,6 +697,88 @@ def test_lda_iteration_on_cuda_matches_plain(dev, M):
         num_words=corpus.num_words, num_topics=64))
     assert torch.equal(b.phi_sum, b.phi_vk.sum(0, dtype=torch.int32))
     assert abs(float(sa.sparse_frac) - float(sb.sparse_frac)) < 0.01
+
+
+# ---------------------------------------------------------------------------
+# the ELL of theta (kernels/ell_select) against its plain version
+# ---------------------------------------------------------------------------
+def ell_theta(D, K, seed):
+    """(D, K) int32 counts: 30% of the topics at counts 1-4 (many ties);
+    row 0 all zero; row 1 dense (every topic non-zero: it overflows unless
+    P = K); row 2 counts from 100 up to the int16 limit (above 255 and
+    beyond the kernel's 128-bin histogram); row 3 counts about that
+    histogram's edge (126-129) and 255 / 256."""
+    rng = np.random.default_rng(seed)
+    theta = (rng.random((D, K)) < 0.3) * rng.integers(1, 5, (D, K))
+    theta[0] = 0
+    theta[1] = rng.integers(1, 4, K)
+    theta[2] = (rng.random(K) < 0.2) * rng.integers(100, 32768, K)
+    theta[3] = (rng.random(K) < 0.3) * rng.choice(
+        [126, 127, 128, 129, 255, 256], K)
+    return theta.astype(np.int32)
+
+
+ELL_CASES = [  # (K, P, ELL dtype, a 3-d (lead) theta)
+    (1024, 512, torch.int16, False), (1024, 256, torch.int32, False),
+    (1024, 1024, torch.int16, False), (1024, 8, torch.int16, True),
+    (90, 60, torch.int16, False), (100, 100, torch.int32, True),
+    (2050, 700, torch.int32, False), (3000, 2500, torch.int16, False),
+    (6000, 6000, torch.int32, False)]
+
+
+@pytest.mark.parametrize("K,P,dtype,lead", ELL_CASES)
+def test_ell_select_matches_plain_version(dev, K, P, dtype, lead):
+    """``theta_to_ell`` and ``ell_topk`` on the card (one launch each)
+    against the plain stable sort, bit for bit: counts, topics with their
+    zero-count padding, and the overflow flag.  K = 90 takes the kernel's
+    4-byte loads (K % 4 != 0), K = 100 a row that is no multiple of 32,
+    K = 2050, 3000 and 6000 rows longer than the kernel's 1024-topic tile,
+    P = 6000 in int32 too many entries to stage in shared memory; the rows
+    are no multiple of the kernel's rows a block."""
+    from repro_torch.core import updates
+    from repro_torch.kernels.ell_select import kernel as ell, ref as ell_ref
+
+    rpb = ell.rows_per_block(K, P, dtype)
+    D = 10 * rpb + 2
+    assert rpb > 2 and D % rpb
+    theta = torch.from_numpy(ell_theta(D, K, seed=K + P))
+    if lead:
+        theta = theta.view(2, D // 2, K)
+    want = ell_ref.theta_to_ell_ref(theta, P, dtype)
+    before = ell.ell_select.launches
+    got = updates.theta_to_ell(theta.to(dev), P, dtype)
+    got_topk = updates.ell_topk(theta.to(dev), P, dtype)
+    torch.cuda.synchronize()
+    assert ell.ell_select.launches == before + 2
+    for g, w in zip(got + got_topk, want + want[:2]):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+    flat = want[2].reshape(-1)
+    assert not flat[0] and bool(flat[1]) == (P < K)
+
+
+def test_ell_select_at_nytimes_shape(dev):
+    """NYTimes' shape, 299,752 x 1024 at P = 512 in int16, on the theta of
+    random topics over Poisson(332) documents (the trainer's first step):
+    one launch, synchronised, bit for bit the plain version on the card."""
+    from repro_torch.kernels.ell_select import kernel as ell, ref as ell_ref
+
+    D, K, P = 299_752, 1024, 512
+    g = torch.Generator(device=dev).manual_seed(0)
+    lengths = torch.poisson(torch.full((D,), 332.0, device=dev),
+                            generator=g).to(torch.int64)
+    doc = torch.repeat_interleave(torch.arange(D, device=dev), lengths)
+    z = torch.randint(0, K, doc.shape, device=dev, generator=g)
+    theta = torch.zeros(D * K, dtype=torch.int32, device=dev)
+    theta.index_add_(0, doc * K + z, torch.ones_like(z, dtype=torch.int32))
+    theta = theta.view(D, K)
+    del doc, z
+    got = ell.ell_select(theta, P, torch.int16)
+    torch.cuda.synchronize()
+    want = ell_ref.theta_to_ell_ref(theta, P, torch.int16)
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+    assert not bool(got[2].any())       # no document has 512 topics
 
 
 # ---------------------------------------------------------------------------

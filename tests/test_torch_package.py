@@ -148,7 +148,8 @@ def test_build_variants_get_their_own_library():
     assert "LDA_SAMPLE_PROBE" in src and "LDA_SAMPLE_TILES_PER_CTA" in src
 
 
-@pytest.mark.parametrize("name", ["fold_in", "lda_sample", "phi_update"])
+@pytest.mark.parametrize("name", ["fold_in", "lda_sample", "phi_update",
+                                  "ell_select"])
 def test_every_kernel_source_is_found(name):
     from repro_torch.kernels import _build
 
